@@ -1,0 +1,221 @@
+"""Hamiltonian Monte Carlo over a chain batch.
+
+Twin of normalizingflow_tpu/mcmc/hmc.py in its chain-batched form
+(`hmc_kernel_chainbatched`, `run_hmc(batched_target=True)`): the target
+maps the whole (chains, dim) batch to (chains,) log-probs, each leapfrog
+step is one autograd gradient of the summed log-prob, and the Metropolis
+accept + state select goes through ops.hmc.accept_select (the CUDA kernel
+on the card). A diagonal mass matrix M gives momenta ~ N(0, M) and kinetic
+energy p^T M^-1 p / 2; acceptance is exp(min(0, dH)).
+
+Randomness. Each transition takes three raw draws per chain: a jitter
+uniform in [-1, 1) of shape (chains, 1), a standard-normal (chains, dim)
+momentum draw and a uniform (chains,) for the accept test. They come from a
+`torch.Generator`, or from an iterator passed as `draws`, so a transition
+or a whole run can be replayed with the JAX package's own numbers.
+
+The JAX package nests its scans to keep TPU trip counts small and so runs
+`padded_length(n)` transitions for n requested; the port runs the same
+number of transitions, and `accept_rate` is averaged over all of them, as
+in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..device import check_on, entry_device
+from ..ops.hmc import accept_select
+from .adaptation import (
+    da_init,
+    da_step_size,
+    da_update,
+    warmup_schedule,
+    welford_init,
+    welford_update_batch,
+    welford_variance,
+)
+
+
+class HMCState(NamedTuple):
+    position: torch.Tensor   # (chains, dim)
+    log_prob: torch.Tensor   # (chains,)
+    grad: torch.Tensor       # (chains, dim)
+
+
+class HMCInfo(NamedTuple):
+    accept_prob: torch.Tensor
+    accepted: torch.Tensor
+    energy_change: torch.Tensor
+
+
+class HMCResult(NamedTuple):
+    samples: torch.Tensor        # (num_samples, chains, dim)
+    log_probs: torch.Tensor      # (num_samples, chains)
+    accept_rate: torch.Tensor    # scalar, sampling phase
+    step_size: torch.Tensor      # adapted scalar
+    inv_mass_diag: torch.Tensor  # adapted (dim,)
+    final_state: HMCState
+
+
+def batched_lp_grad(logprob_batch_fn):
+    """(chains, dim) -> ((chains,), (chains, dim)) value and gradient.
+
+    Per-chain log-probs decouple under a sum, so the gradient of the sum
+    is each chain's own gradient, from one batched evaluation."""
+
+    def lp_grad(x):
+        with torch.enable_grad():
+            x = x.detach().requires_grad_(True)
+            lps = logprob_batch_fn(x)
+            (g,) = torch.autograd.grad(lps.sum(), x)
+        return lps.detach(), g
+
+    return lp_grad
+
+
+def hmc_init(lp_grad, position):
+    lp, grad = lp_grad(position)
+    return HMCState(position, lp, grad)
+
+
+def leapfrog(lp_grad, position, momentum, grad, step_size, num_steps,
+             inv_mass_diag):
+    """Kick-drift-kick velocity Verlet with the gradient of log pi.
+
+    The log-prob rides along with the gradient, so an L-step trajectory
+    costs exactly L gradient evaluations. Requires num_steps >= 1.
+    """
+    if num_steps < 1:
+        raise ValueError("leapfrog needs num_steps >= 1")
+    q, p, g = position, momentum, grad
+    lp = None
+    for _ in range(num_steps):
+        p = p + 0.5 * step_size * g
+        q = q + step_size * (inv_mass_diag * p)
+        lp, g = lp_grad(q)
+        p = p + 0.5 * step_size * g
+    return q, p, lp, g
+
+
+def transition_draws(generator, chains, dim, dtype, device):
+    """One transition's raw draws: (jitter U[-1,1) (chains, 1), momentum
+    N(0,1) (chains, dim), accept U[0,1) (chains,))."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    u_jitter = torch.rand(chains, 1, **kw) * 2.0 - 1.0
+    normal = torch.randn(chains, dim, **kw)
+    u_accept = torch.rand(chains, **kw)
+    return u_jitter, normal, u_accept
+
+
+def hmc_transition(lp_grad, state, draws, step_size, num_leapfrog,
+                   inv_mass_diag, step_jitter=0.2):
+    """One HMC transition of the whole chain batch from the raw `draws`.
+
+    Each chain's step size is step_size * (1 + step_jitter * u) for its own
+    u; the jitter breaks the periodic orbits fixed-length HMC falls into on
+    near-harmonic targets.
+    """
+    u_jitter, normal, u_accept = draws
+    eps = step_size * (1.0 + step_jitter * u_jitter)
+    momentum = torch.sqrt(1.0 / inv_mass_diag) * normal
+    log_u = torch.log(u_accept)
+    q, p, lp_new, g_new = leapfrog(
+        lp_grad, state.position, momentum, state.grad, eps, num_leapfrog,
+        inv_mass_diag)
+    h_old = -state.log_prob + 0.5 * torch.sum(
+        inv_mass_diag * momentum * momentum, dim=-1)
+    pos, lp, g, accept_prob, accepted, d_energy = accept_select(
+        q, p, g_new, state.position, state.grad, lp_new, state.log_prob,
+        h_old, log_u, inv_mass_diag)
+    return HMCState(pos, lp, g), HMCInfo(accept_prob, accepted, d_energy)
+
+
+def padded_length(length, chunk=128):
+    """Transitions the JAX package runs for `length` requested: `length`
+    rounded up to a multiple of `chunk` once it exceeds `chunk`."""
+    if length <= chunk:
+        return length
+    return -(-length // chunk) * chunk
+
+
+def run_hmc(generator, logprob_fn, init_position, num_samples,
+            num_warmup=500, step_size=0.1, num_leapfrog=10,
+            target_accept=0.8, thin=1, inv_mass_diag=None, step_jitter=0.2,
+            draws=None, device="cuda"):
+    """Full HMC run: warmup (adaptation) + sampling.
+
+    `logprob_fn` maps (chains, dim) -> (chains,). `init_position` is
+    (chains, dim) on `device`. Randomness comes from `generator`, or from
+    the iterator `draws` of per-transition raw draws (see the module
+    docstring). Returns HMCResult with samples (num_samples, chains, dim).
+    """
+    device = entry_device(device)
+    check_on(device, init_position)
+    chains, dim = init_position.shape
+    dtype = init_position.dtype
+    if inv_mass_diag is None:
+        inv_mass_diag = torch.ones(dim, dtype=dtype, device=device)
+    if draws is None:
+        def next_draws():
+            return transition_draws(generator, chains, dim, dtype, device)
+    else:
+        draws = iter(draws)
+
+        def next_draws():
+            return next(draws)
+
+    lp_grad = batched_lp_grad(logprob_fn)
+    state = hmc_init(lp_grad, init_position)
+
+    def step(state, eps, inv_mass):
+        return hmc_transition(lp_grad, state, next_draws(), eps,
+                              num_leapfrog, inv_mass, step_jitter)
+
+    # ------------------------------------------------------------- warmup
+    if num_warmup > 0:
+        in_window, window_end = warmup_schedule(num_warmup)
+        da_state = da_init(torch.as_tensor(step_size, dtype=dtype,
+                                           device=device))
+        wf_state = welford_init(dim, dtype, device)
+        # Pad transitions past num_warmup are plain transitions with step
+        # adaptation but no window bookkeeping, as in JAX.
+        for i in range(padded_length(num_warmup)):
+            state, info = step(state, da_step_size(da_state), inv_mass_diag)
+            da_state = da_update(da_state, torch.mean(info.accept_prob),
+                                 target_accept)
+            if i < num_warmup and in_window[i]:
+                wf_state = welford_update_batch(wf_state, state.position)
+            if i < num_warmup and window_end[i]:
+                inv_mass_diag = welford_variance(wf_state)
+                # restart step-size averaging around the current iterate
+                da_state = da_init(da_step_size(da_state))
+                wf_state = welford_init(dim, dtype, device)
+        eps_final = da_step_size(da_state, averaged=True)
+    else:
+        eps_final = torch.as_tensor(step_size, dtype=dtype, device=device)
+
+    # ----------------------------------------------------------- sampling
+    n_run = padded_length(num_samples)
+    samples = torch.empty(num_samples, chains, dim, dtype=dtype,
+                          device=device)
+    log_probs = torch.empty(num_samples, chains, dtype=dtype, device=device)
+    acc_sum = torch.zeros((), dtype=dtype, device=device)
+    for i in range(n_run):
+        state, info = step(state, eps_final, inv_mass_diag)
+        acc_sum = acc_sum + torch.mean(info.accept_prob)
+        for _ in range(thin - 1):
+            state, _ = step(state, eps_final, inv_mass_diag)
+        if i < num_samples:
+            samples[i] = state.position
+            log_probs[i] = state.log_prob
+    return HMCResult(
+        samples=samples,
+        log_probs=log_probs,
+        accept_rate=acc_sum / n_run,
+        step_size=eps_final,
+        inv_mass_diag=inv_mass_diag,
+        final_state=state,
+    )

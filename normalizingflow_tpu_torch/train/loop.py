@@ -1,0 +1,131 @@
+"""The bench's reverse-KL training loop and its optimizer.
+
+Twin of the optimizer in bench.py (`optax.chain(clip_by_global_norm(1.0),
+adam(warmup_cosine_decay_schedule(0, 1e-3, 500, steps)))`) and of its train
+loop. The optimizer reproduces optax's arithmetic, not torch.optim.Adam's:
+
+  * clipping is optax's `select(norm < max_norm, g, (g / norm) * max_norm)`
+    (torch's clip_grad_norm_ divides by norm + 1e-6 instead);
+  * the learning rate of update k (0-based) is schedule(k), so the first
+    update has lr = schedule(0) = 0 under the bench's warmup;
+  * `decay_steps` counts the warmup, as optax's does;
+  * Adam's eps sits outside the square root: m_hat / (sqrt(v_hat) + eps).
+
+optax evaluates the schedule on an int32 step counter, which JAX turns into
+float32 arithmetic; the port evaluates the same formula in float64, and a
+float32 update rounds the rate on use.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..device import check_on, entry_device
+from .objectives import reverse_kl
+
+
+def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps,
+                                 decay_steps):
+    """optax.warmup_cosine_decay_schedule (end value 0, exponent 1) as a
+    function of the step count.
+
+    Warmup is optax's polynomial form (init - peak) * (1 - k/W) + peak; the
+    cosine part runs over decay_steps - warmup_steps steps.
+    """
+    cos_steps = decay_steps - warmup_steps
+    if warmup_steps <= 0 or cos_steps <= 0:
+        raise ValueError("need 0 < warmup_steps < decay_steps")
+
+    def schedule(count):
+        if count < warmup_steps:
+            frac = 1 - min(max(count, 0), warmup_steps) / warmup_steps
+            return (init_value - peak_value) * frac + peak_value
+        k = min(count - warmup_steps, cos_steps)
+        return peak_value * (0.5 * (1 + math.cos(math.pi * k / cos_steps)))
+
+    return schedule
+
+
+class ClippedAdam(torch.optim.Optimizer):
+    """clip_by_global_norm(1.0) followed by Adam (optax's defaults b1 0.9,
+    b2 0.999, eps 1e-8) with a step schedule, with optax's arithmetic (see
+    the module docstring). One param group."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params, schedule):
+        super().__init__(params, {})
+        if len(self.param_groups) != 1:
+            raise ValueError("ClippedAdam takes one parameter group")
+        self.schedule = schedule
+        self.count = 0  # updates applied so far
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("ClippedAdam.step takes no closure")
+        b1, b2 = self.B1, self.B2
+        params = [p for p in self.param_groups[0]["params"]
+                  if p.grad is not None]
+        grads = [p.grad for p in params]
+        for p in params:
+            if not self.state[p]:
+                self.state[p]["mu"] = torch.zeros_like(p)
+                self.state[p]["nu"] = torch.zeros_like(p)
+        mu = [self.state[p]["mu"] for p in params]
+        nu = [self.state[p]["nu"] for p in params]
+
+        # optax: select(norm < 1, g, (g / norm) * 1), as a division by
+        # where(norm < 1, 1, norm), which keeps the decision on the device.
+        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+        one = torch.ones_like(g_norm)
+        grads = torch._foreach_div(grads, torch.where(g_norm < 1.0, one,
+                                                      g_norm))
+
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1 - b2))
+        lr = self.schedule(self.count)
+        self.count += 1
+        mu_hat = torch._foreach_div(mu, 1 - b1**self.count)
+        denom = torch._foreach_div(nu, 1 - b2**self.count)
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.EPS)
+        torch._foreach_div_(mu_hat, denom)
+        torch._foreach_mul_(mu_hat, -lr)
+        torch._foreach_add_(params, mu_hat)
+
+
+def bench_optimizer(params, steps, warmup_steps=500):
+    """The bench's optimizer: clip 1.0, Adam, lr warmup to 1e-3 over
+    `warmup_steps`, then cosine decay to 0 at `steps`."""
+    return ClippedAdam(params, warmup_cosine_decay_schedule(
+        0.0, 1e-3, warmup_steps, steps))
+
+
+def train_step(flow, target, optimizer, z):
+    """One reverse-KL update on the prior draws `z`; returns the loss
+    tensor (pre-update, as the JAX loop reports it)."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = reverse_kl(flow, target, z=z)
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+def train(flow, target, steps, batch, generator, device="cuda",
+          warmup_steps=500):
+    """The bench's training run: `steps` reverse-KL updates at `batch`
+    prior draws each, drawn from `generator`. Returns the final loss."""
+    device = entry_device(device)
+    check_on(device, *flow.parameters())
+    optimizer = bench_optimizer(list(flow.parameters()), steps, warmup_steps)
+    loss = None
+    for _ in range(steps):
+        z = flow.prior.sample(batch, generator=generator)
+        loss = train_step(flow, target, optimizer, z)
+    return float(loss)

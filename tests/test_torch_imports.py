@@ -1,0 +1,61 @@
+"""The port stands alone: importing it loads neither JAX nor the JAX
+package, and its entry points do not fall back to the CPU."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from normalizingflow_tpu_torch.mcmc import neutra_hmc, run_hmc
+from normalizingflow_tpu_torch.targets import NealsFunnel
+from normalizingflow_tpu_torch.train.loop import train
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+
+IMPORT_ALL = """
+import importlib, pkgutil, sys
+import normalizingflow_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert bad == "[]", bad
+    assert int(count) >= 20  # every submodule was imported
+
+
+def test_chip_smoke_imports_no_jax():
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert "import jax" not in src and "normalizingflow_tpu." not in src \
+        .replace("normalizingflow_tpu_torch", "")
+
+
+def test_entry_points_default_to_cuda_and_do_not_fall_back():
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    gen = torch.Generator()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_hmc(gen, lambda x: -0.5 * (x * x).sum(-1), torch.zeros(4, 2), 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        neutra_hmc(gen, torch.nn.Linear(2, 2), NealsFunnel(2), 4, 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(torch.nn.Linear(2, 2), NealsFunnel(2), 1, 4, gen)
+
+
+def test_entry_points_refuse_tensors_on_another_device():
+    with pytest.raises(ValueError, match="expected"):
+        run_hmc(torch.Generator(), lambda x: -0.5 * (x * x).sum(-1),
+                torch.zeros(4, 2, device="meta"), 2, device="cpu")
