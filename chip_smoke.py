@@ -1,21 +1,37 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (normalizingflow_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py           # reduced depth, about two minutes on an H100
-    python3 chip_smoke.py --full    # the bench's depth: 15000 train steps,
-                                    # 1024 draws
+    python3 chip_smoke.py           # funnel line at reduced depth, spline
+                                    # line at the bench's depth
+    python3 chip_smoke.py --full    # the funnel line at the bench's depth
+                                    # too: 15000 train steps, 1024 draws
 
 Phases, each printing its own line; any failure exits non-zero:
   1. device : the card's name and power limit from nvidia-smi;
-  2. build  : compiles every CUDA kernel of the path from csrc/ with nvcc;
+  2. build  : compiles every CUDA kernel from csrc/ with nvcc, in parallel;
   3. kernels: each kernel against its plain PyTorch version on the card, at
-              the main path's shapes and beyond, with NaN/inf rows; times
+              the main paths' shapes and beyond, with NaN/inf rows; times
               with CUDA events beside the plain version and the byte bound;
   4. main   : the bench's funnel line at full width -- RealNVP (ActNorm +
               2 x AffineCoupling, hidden 128) on NealsFunnel(64), reverse-KL
               training at batch 4096, NeuTra-HMC with 8192 chains, warmup
               100, L=8, push to data space, bulk and tail ESS -- with the
-              kernels' launch counts, and checks of the funnel's statistics.
+              kernels' launch counts, and checks of the funnel's statistics;
+  5. spline : the bench's spline line at full width and depth -- 3 x
+              SplineCoupling (32 particles x 3, 32 bins, B = 6, hidden 354)
+              on NealsFunnel(96), 2250 reverse-KL steps at batch 1024,
+              NeuTra-HMC with 4096 chains, warmup 100, 256 draws, L=8 --
+              with exact launch counts of both kernels, each layer's kernel
+              held against its plain version on the trained flow, a round
+              trip, the training's progress, and HMC moving var(v) from the
+              flow's toward the funnel's 9; the band |v_mean| < 0.5,
+              |v_var - 9| < 3 is reported, not enforced (this configuration
+              misses it: ROADMAP Queue 3);
+  6. spline_ar: the NSF_AR flow of configs/LJ.yaml at full width (2 x
+              SplineAR(96, 32 bins, hidden 354, periodic) on an
+              EinsteinCrystal prior from data/lj_fcc_ref.xyz): density
+              evaluation and sampling of 1024 points, a round trip and
+              kernel-vs-plain on each layer.
 Then one JSON line describing every kernel, and last the JSON status line.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
@@ -29,6 +45,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
@@ -41,7 +58,26 @@ CHAINS, WARMUP, LEAPFROG = 8192, 100, 8
 TRAIN_BATCH = 4096
 FULL_TRAIN_STEPS, FULL_DRAWS = 15000, 1024  # bench.py's depth
 REDUCED_TRAIN_STEPS, REDUCED_DRAWS = 5000, 256
-KERNEL_SHAPES = [(8192, 64), (1056, 64), (300, 2048), (96, 6)]
+KERNEL_SHAPES = [(8192, 64), (4096, 96), (1056, 64), (300, 2048), (96, 6)]
+
+# The bench's spline line (bench.py spline_flow_lines), at its depth.
+SP_SIZE, SP_SPACE, SP_BINS, SP_HIDDEN, SP_TAIL = 32, 3, 32, 354, 6.0
+SP_DIM = SP_SIZE * SP_SPACE
+SP_CHAINS, SP_DRAWS, SP_TRAIN_STEPS, SP_BATCH = 4096, 256, 2250, 1024
+SP_PEAK_LR, SP_LR_WARMUP = 5e-4, 300
+
+# RQS kernel checks: rows N, bins K, both directions, these bounds.
+RQS_ROWS = [65536, 262144, 1000]
+RQS_BINS = [8, 32, 64]
+RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
+              "asym": (-1.5, 2.5, -0.5, 4.0)}
+# tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
+RQS_Y_TOL = dict(atol=2e-5, rtol=1e-5)  # against the float64 plain version
+RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
+
+# The NSF_AR flow of configs/LJ.yaml: 32 LJ particles at rho 1.28.
+LJ_XYZ = Path(__file__).resolve().parent / "data" / "lj_fcc_ref.xyz"
+LJ_N, LJ_RHO, LJ_ALPHA, LJ_LAYERS, LJ_POINTS = 32, 1.28, 1000.0, 2, 1024
 
 
 def log(*a):
@@ -267,6 +303,359 @@ def main_path(train_steps, draws, seed, device="cuda"):
     return launches
 
 
+# -------------------------------------------------------------------- rqs
+def rqs_inputs(n, k, bounds, inverse, gen):
+    """Random spline logits and points across the domain and both tails;
+    every fifth row lies exactly on one of the plain version's knots, rows
+    1 and 2 on the two bounds, and rows 3::97, 4::97, 6::97 are NaN, +inf
+    and -inf."""
+    from normalizingflow_tpu_torch.bijectors.rqs import _normalize_bins
+
+    kw = dict(device=gen.device, dtype=torch.float32, generator=gen)
+    w, h = torch.randn(n, k, **kw), torch.randn(n, k, **kw)
+    d = torch.randn(n, k - 1, **kw)
+    left, right, bottom, top = bounds
+    lo, hi = (bottom, top) if inverse else (left, right)
+    span = hi - lo
+    x = lo - 0.3 * span + 1.6 * span * torch.rand(n, **kw)
+    knots, _ = _normalize_bins(h if inverse else w, k, 1e-3, lo, hi)
+    rows = torch.arange(0, n, 5, device=gen.device)
+    at = torch.randint(0, k + 1, (rows.numel(),), device=gen.device,
+                       generator=gen)
+    x[rows] = knots[rows, at]
+    x[1], x[2] = lo, hi
+    x[3::97] = float("nan")
+    x[4::97] = float("inf")
+    x[6::97] = float("-inf")
+    return x, w, h, d
+
+
+def plain64(x, w, h, d, inverse, *bounds):
+    """The plain version evaluated in float64 on the same (float32) inputs:
+    what the kernel, float64 inside, is held against (csrc/rqs.cu says
+    why)."""
+    from normalizingflow_tpu_torch.ops.rqs import plain_rqs
+
+    return plain_rqs(x.double(), w.double(), h.double(), d.double(),
+                     inverse, *bounds)
+
+
+def compare_rqs(y_k, ld_k, y_r, ld_r, label):
+    """Kernel (y_k, ld_k) against the plain version: NaN and inf in the same
+    places with the same values, finite entries at the tolerances above.
+    Returns the largest finite |difference| of y and of ld."""
+    errs = []
+    for name, a, b, tol in (("y", y_k.double(), y_r.double(), RQS_Y_TOL),
+                            ("ld", ld_k.double(), ld_r.double(),
+                             RQS_LD_TOL)):
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"rqs {label}: {name} NaN positions differ")
+        inf = torch.isinf(b)
+        if not torch.equal(torch.isinf(a), inf) or not torch.equal(
+                a[inf], b[inf]):
+            raise AssertionError(f"rqs {label}: {name} inf entries differ")
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], **tol,
+                                   msg=lambda m: f"rqs {label} {name}: {m}")
+        errs.append(float((a[fin] - b[fin]).abs().max()) if bool(fin.any())
+                    else 0.0)
+    return tuple(errs)
+
+
+def rqs_bound(n, k):
+    """Least time for N scalars with K bins: x, w, h, d read once, y and
+    log-det written once; operations counted from the jnp function (about
+    11K per softmax-floor-cumsum of w and h, 5K for the derivatives, K
+    comparisons, 50 for the map and its log-det), at the fp32 rate."""
+    nbytes = 4 * n * (1 + 2 * k + (k - 1) + 2)
+    ops = n * (28 * k + 50)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def check_rqs(n, k, bname, inverse, gen, flush):
+    from normalizingflow_tpu_torch.ops.rqs import plain_rqs, rqs_cuda
+
+    bounds = RQS_BOUNDS[bname]
+    x, w, h, d = rqs_inputs(n, k, bounds, inverse, gen)
+    label = f"({n},{k}) {'inverse' if inverse else 'forward'} {bname}"
+    want = plain64(x, w, h, d, inverse, *bounds)
+    got = rqs_cuda(x, w, h, d, inverse, *bounds)  # CUDA tensors: the kernel
+    torch.cuda.synchronize()
+    err_y, err_ld = compare_rqs(*got, *want, label)
+    # for the record: how far the float32 plain version is from float64
+    f32 = plain_rqs(x, w, h, d, inverse, *bounds)
+    gap_y, gap_ld = (float((a.double() - b).nan_to_num(0.0, 0.0, 0.0)
+                           .abs().max()) for a, b in zip(f32, want))
+    ms = cuda_time_ms(lambda: rqs_cuda(x, w, h, d, inverse, *bounds),
+                      flush=flush)
+    plain_ms = cuda_time_ms(lambda: plain_rqs(x, w, h, d, inverse, *bounds),
+                            flush=flush)
+    bound_ms, bound_by, nbytes = rqs_bound(n, k)
+    log(f"kernels: rqs {label} f32 ok: max_abs_err y {err_y:.3g} ld "
+        f"{err_ld:.3g} (float32 plain: y {gap_y:.3g} ld {gap_ld:.3g}), "
+        f"ms {ms:.5f}, plain_ms {plain_ms:.5f}, bound_ms "
+        f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.1f} MB), share of "
+        f"bound {bound_ms / ms:.3f}")
+    return dict(max_abs_err=max(err_y, err_ld), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# ------------------------------------------------------------ spline line
+def build_spline_flow(gen, device):
+    from normalizingflow_tpu_torch import NormalizingFlow
+    from normalizingflow_tpu_torch.bijectors import Chain, SplineCoupling
+    from normalizingflow_tpu_torch.distributions import DiagNormal
+
+    kw = dict(device=device, dtype=torch.float32)
+    return NormalizingFlow(DiagNormal(SP_DIM, **kw), Chain([
+        SplineCoupling(SP_SIZE, SP_SPACE, num_bins=SP_BINS,
+                       tail_bound=SP_TAIL, hidden_dim=SP_HIDDEN, mask=(a,),
+                       generator=gen, **kw)
+        for a in range(SP_SPACE)]))
+
+
+def spline_layer_checks(flow, z):
+    """Each SplineCoupling's kernel against the plain version on the
+    layer's own w, h, d: inverse from z down to x, then forward back up.
+    Returns (max |err| y, max |err| log-det)."""
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda
+
+    layers = list(flow.bijector.bijectors)
+    errs = []
+    with torch.no_grad():
+        y = z
+        for inverse, order in ((True, layers[::-1]), (False, layers)):
+            for i, layer in enumerate(order):
+                cond, trans = layer.split(y)
+                w, h, d = layer.spline_params(cond)
+                b = (-layer.tail_bound, layer.tail_bound) * 2
+                got = rqs_cuda(trans, w, h, d, inverse, *b)
+                want = plain64(trans, w, h, d, inverse, *b)
+                errs.append(compare_rqs(
+                    *got, *want, f"trained layer {i} inverse={inverse}"))
+                y = layer.join(cond, got[0])
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
+def round_trip(flow, z):
+    """max |forward(inverse(z)) - z| and max |log-dets' sum| on the card."""
+    with torch.no_grad():
+        x, ld_inv = flow.inverse(z)
+        z2, ld_fwd = flow.bijector.forward(x)
+    return (float((z2 - z).abs().max()),
+            float((ld_inv + ld_fwd).abs().max()))
+
+
+def spline_line(seed, device="cuda"):
+    from normalizingflow_tpu_torch.estimators.ess import (
+        bulk_ess_per_dim,
+        tail_ess,
+    )
+    from normalizingflow_tpu_torch.mcmc import (
+        neutra_hmc,
+        padded_length,
+        push_to_data,
+    )
+    from normalizingflow_tpu_torch.mcmc.neutra import PUSH_CHUNK
+    from normalizingflow_tpu_torch.ops.hmc import accept_select
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda
+    from normalizingflow_tpu_torch.targets import NealsFunnel
+    from normalizingflow_tpu_torch.train.loop import train
+    from normalizingflow_tpu_torch.train.objectives import reverse_kl
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    flow = build_spline_flow(gen, device)
+    target = NealsFunnel(SP_DIM)
+    layers = len(flow.bijector.bijectors)
+    with torch.no_grad():
+        initial_kl = float(reverse_kl(
+            flow, target, z=flow.prior.sample(SP_BATCH, generator=gen)))
+
+    accept_select.launches = 0
+    rqs_cuda.launches = 0
+    t0 = time.perf_counter()
+    final_kl = train(flow, target, SP_TRAIN_STEPS, SP_BATCH, gen,
+                     device=device, warmup_steps=SP_LR_WARMUP,
+                     peak_lr=SP_PEAK_LR)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = rqs_cuda.launches
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = neutra_hmc(gen, flow, target, SP_CHAINS, SP_DRAWS,
+                     num_warmup=WARMUP, step_size=0.5, num_leapfrog=LEAPFROG,
+                     device=device)
+    end.record()
+    torch.cuda.synchronize()
+    rqs_launches = rqs_cuda.launches
+    acc_launches = accept_select.launches
+    sample_s = start.elapsed_time(end) / 1e3
+    # the flow's own push-forward, where the chains start
+    v_flow = push_to_data(flow, flow.prior.sample(
+        SP_CHAINS, generator=gen))[:, 0]
+
+    transitions = padded_length(WARMUP) + padded_length(SP_DRAWS)
+    grad_evals = 1 + LEAPFROG * transitions
+    chunks = -(-SP_CHAINS * SP_DRAWS // PUSH_CHUNK)
+    expected = layers * (SP_TRAIN_STEPS + grad_evals + chunks)
+
+    xs = res.samples_x
+    bulk_x = bulk_ess_per_dim(xs)
+    bulk_x2 = bulk_ess_per_dim(xs * xs)
+    ess_min = float(torch.minimum(bulk_x.min(), bulk_x2.min()))
+    hardest = int(torch.argmin(bulk_x))
+    ess_tail = float(tail_ess(xs[:, :, hardest]))
+    v = xs[..., 0]
+    accept = float(res.accept_rate)
+    v_mean, v_var = float(v.mean()), float(v.var(correction=0))
+    stats = dict(
+        train_steps=SP_TRAIN_STEPS, train_batch=SP_BATCH, train_s=train_s,
+        initial_reverse_kl=initial_kl, final_reverse_kl=final_kl,
+        chains=SP_CHAINS, warmup=WARMUP,
+        draws=SP_DRAWS, leapfrog=LEAPFROG, transitions=transitions,
+        gradient_evaluations=grad_evals, push_chunks=chunks,
+        rqs_launches=rqs_launches, rqs_launches_train=train_launches,
+        rqs_launches_expected=expected, accept_launches=acc_launches,
+        accept=accept, step_size=float(res.step_size),
+        v_mean=v_mean, v_var=v_var,
+        v_in_band=abs(v_mean) < 0.5 and abs(v_var - 9.0) < 3.0,
+        flow_v_mean=float(v_flow.mean()),
+        flow_v_var=float(v_flow.var(correction=0)),
+        ess_min_bulk_x=float(bulk_x.min()),
+        ess_min_bulk_x2=float(bulk_x2.min()), ess_min=ess_min,
+        ess_tail_hardest_coord=ess_tail, sample_s=sample_s,
+        ess_per_s=ess_min / sample_s,
+        ms_per_transition=sample_s * 1e3 / transitions)
+    log("spline: " + json.dumps(stats))
+
+    if rqs_launches != expected:
+        raise AssertionError(f"rqs launched {rqs_launches} times, the code "
+                             f"implies {expected}")
+    if acc_launches != transitions:
+        raise AssertionError(f"accept_select launched {acc_launches} times "
+                             f"for {transitions} transitions")
+    if not bool(torch.isfinite(xs).all()) or not all(
+            math.isfinite(x) for x in (final_kl, ess_min, ess_tail, accept)):
+        raise AssertionError("spline: non-finite output")
+    if xs.shape != (SP_DRAWS, SP_CHAINS, SP_DIM):
+        raise AssertionError(f"spline samples shape {tuple(xs.shape)}")
+    if not 0.6 <= accept <= 0.95:
+        raise AssertionError(f"spline accept {accept} outside [0.6, 0.95]")
+    if not final_kl < initial_kl - 1.0:
+        raise AssertionError(f"spline training did not learn: reverse KL "
+                             f"{initial_kl} -> {final_kl}")
+    # The chains start from the flow's push-forward; HMC on a right
+    # pullback moves v's law from there toward the funnel's (0, 9).
+    flow_v_var = stats["flow_v_var"]
+    if not abs(v_var - 9.0) < abs(flow_v_var - 9.0):
+        raise AssertionError(f"spline HMC moved var(v) away from 9: flow "
+                             f"{flow_v_var}, HMC {v_var}")
+
+    z = res.samples_z[0]
+    err_y, err_ld = spline_layer_checks(flow, z)
+    rt_z, rt_ld = round_trip(flow, z)
+    log(f"spline: trained-flow kernel vs plain on {z.shape[0]} pushed "
+        f"draws, {layers} layers x 2 directions ok: max_abs_err y "
+        f"{err_y:.3g} ld {err_ld:.3g}; round trip max |z err| {rt_z:.3g}, "
+        f"max |log-det sum| {rt_ld:.3g}")
+    if not rt_z <= 1e-4 or not rt_ld <= 1e-3:
+        raise AssertionError(f"spline round trip off: z {rt_z}, "
+                             f"log-det {rt_ld}")
+    return dict(rqs=rqs_launches, accept_select=acc_launches,
+                max_abs_err=max(err_y, err_ld))
+
+
+# --------------------------------------------------------------- NSF_AR
+def read_xyz(path):
+    """(centers, boxlength) of an .xyz lattice whose comment line holds
+    `boxlength=<L>`."""
+    lines = path.read_text().splitlines()
+    n = int(lines[0])
+    box = float(lines[1].split("boxlength=")[1].split()[0])
+    centers = [[float(v) for v in ln.split()[-3:]] for ln in lines[2:2 + n]]
+    return centers, box
+
+
+def spline_ar_phase(seed, device="cuda"):
+    from normalizingflow_tpu_torch import NormalizingFlow
+    from normalizingflow_tpu_torch.bijectors import Chain, SplineAR
+    from normalizingflow_tpu_torch.distributions import EinsteinCrystal
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda
+
+    centers, box = read_xyz(LJ_XYZ)
+    # configs/LJ.yaml gives rho: the half box (N / (8 rho))^(1/3) is the
+    # spline's tail bound, as config.py's infer_boxlength computes it
+    tail = (LJ_N / (8.0 * LJ_RHO)) ** (1.0 / 3.0)
+    dim = 3 * LJ_N
+    kw = dict(device=device, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    prior = EinsteinCrystal(centers, alpha=LJ_ALPHA, boxlength=box, **kw)
+    flow = NormalizingFlow(prior, Chain([
+        SplineAR(dim, num_bins=SP_BINS, tail_bound=tail,
+                 hidden_dim=SP_HIDDEN, periodic=True, generator=gen, **kw)
+        for _ in range(LJ_LAYERS)]))
+    x0 = prior.sample(LJ_POINTS, generator=gen)
+
+    rqs_cuda.launches = 0
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = flow.log_prob(x0)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        xs, log_px, z = flow.sample(LJ_POINTS, generator=gen)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches = rqs_cuda.launches
+    expected = LJ_LAYERS * (1 + dim)
+
+    # each layer's kernel against the plain version on its own w, h, d:
+    # forward from the prior draws, inverse from the latents down
+    errs = []
+    layers = list(flow.bijector.bijectors)
+    with torch.no_grad():
+        for inverse, order in ((False, layers), (True, layers[::-1])):
+            y = x0 if not inverse else z
+            for i, layer in enumerate(order):
+                out, _ = layer.inverse(y) if inverse else layer.forward(y)
+                w, h, d = layer.prep_spline(layer.raw_params(
+                    out if inverse else y))
+                b = layer.input_bounds + layer.output_bounds
+                got = rqs_cuda(y, w, h, d, inverse, *b)
+                want = plain64(y, w, h, d, inverse, *b)
+                errs.append(compare_rqs(
+                    *got, *want, f"NSF_AR layer {i} inverse={inverse}"))
+                y = out
+    rt_z, rt_ld = round_trip(flow, z)
+    stats = dict(dim=dim, layers=LJ_LAYERS, bins=SP_BINS,
+                 hidden=SP_HIDDEN, tail_bound=tail, boxlength=box,
+                 points=LJ_POINTS, log_prob_s=t1 - t0, sample_s=t2 - t1,
+                 rqs_launches=launches, rqs_launches_expected=expected,
+                 mean_log_prob=float(lp.mean()),
+                 mean_log_px=float(log_px.mean()),
+                 max_abs_err_y=max(e[0] for e in errs),
+                 max_abs_err_ld=max(e[1] for e in errs),
+                 round_trip_z=rt_z, round_trip_log_det=rt_ld)
+    log("spline_ar: " + json.dumps(stats))
+    if launches != expected:
+        raise AssertionError(f"NSF_AR: rqs launched {launches} times, the "
+                             f"code implies {expected}")
+    if not all(bool(torch.isfinite(t).all()) for t in (lp, xs, log_px)):
+        raise AssertionError("NSF_AR: non-finite output")
+    if xs.shape != (LJ_POINTS, dim) or lp.shape != (LJ_POINTS,):
+        raise AssertionError(f"NSF_AR shapes {tuple(xs.shape)}, "
+                             f"{tuple(lp.shape)}")
+    if not rt_z <= 1e-4 or not rt_ld <= 1e-3:
+        raise AssertionError(f"NSF_AR round trip off: z {rt_z}, log-det "
+                             f"{rt_ld}")
+    return dict(rqs=launches, max_abs_err=max(max(e) for e in errs))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -276,14 +665,13 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from normalizingflow_tpu_torch.ops import _build
-    from normalizingflow_tpu_torch.ops.hmc import KERNEL
+    from normalizingflow_tpu_torch.ops import _build, hmc, rqs
 
     log(device_line())
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    reports = _build.build([KERNEL])
+    reports = _build.build([hmc.KERNEL, rqs.KERNEL])
     log(f"build: {time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
@@ -294,22 +682,44 @@ def main(argv=None):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     results = {shape: check_accept_select(*shape, gen, flush)
                for shape in KERNEL_SHAPES}
+    rqs_results = {
+        (n, k, inverse, bname): check_rqs(n, k, bname, inverse, gen, flush)
+        for n in RQS_ROWS for k in RQS_BINS for inverse in (True, False)
+        for bname in RQS_BOUNDS}
     del flush
+    torch.cuda.empty_cache()
 
     train_steps, draws = ((FULL_TRAIN_STEPS, FULL_DRAWS) if args.full
                           else (REDUCED_TRAIN_STEPS, REDUCED_DRAWS))
-    launches = main_path(train_steps, draws, args.seed)
+    funnel = main_path(train_steps, draws, args.seed)
+    torch.cuda.empty_cache()
+    spline = spline_line(args.seed)
+    torch.cuda.empty_cache()
+    spline_ar = spline_ar_phase(args.seed)
 
-    main_shape = results[(CHAINS, DIM)]
-    kernels = [dict(
-        name="accept_select", route="cuda",
-        source="normalizingflow_tpu_torch/csrc/accept_select.cu",
-        replaces="normalizingflow_tpu/ops/hmc_pallas.py:56",
-        launches=launches,
-        max_abs_err=max(r["max_abs_err"] for r in results.values()),
-        ms=main_shape["ms"], plain_ms=main_shape["plain_ms"],
-        bound_ms=main_shape["bound_ms"], bound_by=main_shape["bound_by"],
-        library_ms=None)]
+    def entry(name, source, replaces, by_path, timed, errs):
+        return dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(by_path.values()), launches_by_path=by_path,
+            max_abs_err=max(errs), ms=timed["ms"],
+            plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
+            bound_by=timed["bound_by"], library_ms=None)
+
+    kernels = [
+        entry("accept_select",
+              "normalizingflow_tpu_torch/csrc/accept_select.cu",
+              "normalizingflow_tpu/ops/hmc_pallas.py:56",
+              dict(funnel=funnel, spline=spline["accept_select"]),
+              results[(CHAINS, DIM)],
+              [r["max_abs_err"] for r in results.values()]),
+        entry("rqs", "normalizingflow_tpu_torch/csrc/rqs.cu",
+              "normalizingflow_tpu/ops/rqs_pallas.py:45",
+              dict(spline=spline["rqs"], spline_ar=spline_ar["rqs"]),
+              rqs_results[(SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS,
+                           True, "sym")],
+              [r["max_abs_err"] for r in rqs_results.values()]
+              + [spline["max_abs_err"], spline_ar["max_abs_err"]]),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

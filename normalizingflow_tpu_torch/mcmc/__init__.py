@@ -21,7 +21,12 @@ from .hmc import (
     run_hmc,
     transition_draws,
 )
-from .neutra import NeutraResult, neutra_hmc, pullback_logprob_batched
+from .neutra import (
+    NeutraResult,
+    neutra_hmc,
+    pullback_logprob_batched,
+    push_to_data,
+)
 
 __all__ = [
     "DualAveragingState", "WelfordState", "da_init", "da_step_size",
@@ -30,5 +35,5 @@ __all__ = [
     "HMCInfo", "HMCResult", "HMCState", "batched_lp_grad", "hmc_init",
     "hmc_transition", "leapfrog", "padded_length", "run_hmc",
     "transition_draws",
-    "NeutraResult", "neutra_hmc", "pullback_logprob_batched",
+    "NeutraResult", "neutra_hmc", "pullback_logprob_batched", "push_to_data",
 ]

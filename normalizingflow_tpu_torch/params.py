@@ -9,8 +9,15 @@ For the RealNVP stack the tree is
      {"t1", "s1", "t2", "s2": {"w1", "b1", "w2", "b2", "w3", "b3"}},
      ...)                                       # AffineCoupling, ...
 
-MLP weights keep the JAX (fan_in, fan_out) layout, so leaves copy as they
-are. `NormalizingFlow` and `Invert` carry their inner bijector's tree.
+and the spline layers' trees are
+
+    {"psi": {"w1", "b1", "w2", "b2", "w3", "b3"}}          # SplineCoupling
+    {"init_raw", "cond": {"w1", "b1", ..., "b3"}}           # SplineAR
+    {"init_param", "cond": {"w1", "b1", ..., "b3"}}         # MaskedAffineAR
+
+(`cond` is absent at dim 1). MLP weights keep the JAX (fan_in, fan_out)
+layout and the AR layers their stacked (dim-1, ...) one, so leaves copy as
+they are. `NormalizingFlow` and `Invert` carry their inner bijector's tree.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """The bench's reverse-KL training loop and its optimizer.
 
 Twin of the optimizer in bench.py (`optax.chain(clip_by_global_norm(1.0),
-adam(warmup_cosine_decay_schedule(0, 1e-3, 500, steps)))`) and of its train
-loop. The optimizer reproduces optax's arithmetic, not torch.optim.Adam's:
+adam(warmup_cosine_decay_schedule(0, peak, warmup, steps)))`, with peak and
+warmup 1e-3 and 500 on the funnel line, 5e-4 and 300 on the spline line)
+and of its train loop. The optimizer reproduces optax's arithmetic, not torch.optim.Adam's:
 
   * clipping is optax's `select(norm < max_norm, g, (g / norm) * max_norm)`
     (torch's clip_grad_norm_ divides by norm + 1e-6 instead);
@@ -100,11 +101,12 @@ class ClippedAdam(torch.optim.Optimizer):
         torch._foreach_add_(params, mu_hat)
 
 
-def bench_optimizer(params, steps, warmup_steps=500):
-    """The bench's optimizer: clip 1.0, Adam, lr warmup to 1e-3 over
-    `warmup_steps`, then cosine decay to 0 at `steps`."""
+def bench_optimizer(params, steps, warmup_steps=500, peak_lr=1e-3):
+    """The bench's optimizer: clip 1.0, Adam, lr warmup to `peak_lr` over
+    `warmup_steps`, then cosine decay to 0 at `steps`. The funnel line uses
+    (1e-3, 500), the spline line (5e-4, 300)."""
     return ClippedAdam(params, warmup_cosine_decay_schedule(
-        0.0, 1e-3, warmup_steps, steps))
+        0.0, peak_lr, warmup_steps, steps))
 
 
 def train_step(flow, target, optimizer, z):
@@ -118,12 +120,14 @@ def train_step(flow, target, optimizer, z):
 
 
 def train(flow, target, steps, batch, generator, device="cuda",
-          warmup_steps=500):
+          warmup_steps=500, peak_lr=1e-3):
     """The bench's training run: `steps` reverse-KL updates at `batch`
-    prior draws each, drawn from `generator`. Returns the final loss."""
+    prior draws each, drawn from `generator`, with `bench_optimizer`.
+    Returns the final loss."""
     device = entry_device(device)
     check_on(device, *flow.parameters())
-    optimizer = bench_optimizer(list(flow.parameters()), steps, warmup_steps)
+    optimizer = bench_optimizer(list(flow.parameters()), steps, warmup_steps,
+                                peak_lr)
     loss = None
     for _ in range(steps):
         z = flow.prior.sample(batch, generator=generator)

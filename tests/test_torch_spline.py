@@ -1,0 +1,338 @@
+"""Parity of the port's spline flows and particle priors with the JAX
+package, in float64.
+
+The layers (SplineCoupling under every mask kind, SplineAR periodic, plain
+and with asymmetric bounds, MaskedAffineAR) take the JAX init, perturbed,
+through `params.from_jax`; inputs come from numpy. Outputs, log-dets and
+parameter gradients match at rtol 1e-10 / 1e-9 (the packages differ only
+in the order of floating-point sums). A small NSF_CL NeuTra run replays
+JAX's own draws, as tests/test_torch_hmc.py does for RealNVP.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from normalizingflow_tpu import NormalizingFlow as JFlow
+from normalizingflow_tpu import bijectors as jb
+from normalizingflow_tpu import distributions as jd
+from normalizingflow_tpu.mcmc.hmc import run_hmc as j_run_hmc
+from normalizingflow_tpu.mcmc.neutra import neutra_hmc as j_neutra_hmc
+from normalizingflow_tpu.mcmc.neutra import (
+    pullback_logprob_batched as j_pullback,
+)
+from normalizingflow_tpu.mcmc.hmc import padded_length as j_padded_length
+from normalizingflow_tpu.targets import NealsFunnel as JFunnel
+from normalizingflow_tpu.train.objectives import reverse_kl as j_reverse_kl
+
+import normalizingflow_tpu_torch as nft
+from normalizingflow_tpu_torch import bijectors as tb
+from normalizingflow_tpu_torch import distributions as td
+from normalizingflow_tpu_torch import params as tparams
+from normalizingflow_tpu_torch.mcmc import (
+    pullback_logprob_batched,
+    push_to_data,
+    run_hmc,
+)
+from normalizingflow_tpu_torch.targets import NealsFunnel
+from normalizingflow_tpu_torch.train.loop import bench_optimizer
+from normalizingflow_tpu_torch.train.objectives import reverse_kl
+
+torch.set_num_threads(1)
+
+SIZE, SPACE, K, B, HIDDEN = 4, 3, 8, 3.0, 16
+DIM = SIZE * SPACE
+AR_DIM, BATCH = 5, 24
+RTOL, ATOL = 1e-10, 1e-12
+F64 = dict(dtype=torch.float64, device="cpu")
+
+
+def t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float64))
+
+
+def close(actual, expected, rtol=RTOL, atol=ATOL, msg=""):
+    if isinstance(actual, torch.Tensor):
+        actual = actual.detach().numpy()
+    np.testing.assert_allclose(actual, np.asarray(expected), rtol=rtol,
+                               atol=atol, err_msg=msg)
+
+
+def perturbed(tree, seed, scale=0.1):
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(lambda a: jnp.asarray(
+        np.asarray(a, np.float64) + scale * rng.standard_normal(np.shape(a))),
+        tree)
+
+
+LAYERS = ["cl_mask0", "cl_mask1", "cl_mask2", "cl_mask01", "ar_periodic",
+          "ar_plain", "ar_asymmetric", "maf"]
+
+
+def layer_pair(kind):
+    """(JAX layer, port layer, input width, input scale)."""
+    if kind.startswith("cl_"):
+        mask = tuple(int(c) for c in kind[len("cl_mask"):])
+        kw = dict(num_bins=K, tail_bound=B, hidden_dim=HIDDEN, mask=mask)
+        return (jb.SplineCoupling(SIZE, SPACE, **kw),
+                tb.SplineCoupling(SIZE, SPACE, **kw, **F64), DIM, 1.5)
+    if kind.startswith("ar_"):
+        kw = dict(num_bins=K, tail_bound=B, hidden_dim=HIDDEN,
+                  periodic=kind != "ar_plain")
+        if kind == "ar_asymmetric":
+            kw.update(input_bounds=(-2.0, 3.5), output_bounds=(-1.0, 2.0))
+        return (jb.SplineAR(AR_DIM, **kw), tb.SplineAR(AR_DIM, **kw, **F64),
+                AR_DIM, 1.5)
+    if kind == "maf":
+        return (jb.MaskedAffineAR(AR_DIM, hidden_dim=8),
+                tb.MaskedAffineAR(AR_DIM, hidden_dim=8, **F64), AR_DIM, 1.0)
+    raise ValueError(kind)
+
+
+def loaded_pair(kind, seed=1):
+    jl, tl, dim, scale = layer_pair(kind)
+    p = perturbed(jl.init(jax.random.PRNGKey(seed)), seed)
+    tparams.from_jax(tl, p)
+    x = np.random.default_rng(seed).standard_normal((BATCH, dim)) * scale
+    return jl, tl, p, x
+
+
+def named_grads(module):
+    return {n: prm.grad.numpy() for n, prm in module.named_parameters()}
+
+
+def jax_named(tree):
+    return {".".join(str(k.key) for k in path): np.asarray(g)
+            for path, g in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("kind", LAYERS)
+def test_layer_matches_jax(kind):
+    jl, tl, p, x = loaded_pair(kind)
+    jy, jld = jl.forward(p, jnp.asarray(x))
+    ty, tld = tl.forward(t(x))
+    close(ty, jy)
+    close(tld, jld)
+    jx, jild = jl.inverse(p, jy)
+    tx, tild = tl.inverse(ty)
+    close(tx, jx)
+    close(tild, jild)
+    close(tx, x, rtol=1e-9, atol=1e-9)      # round trip
+    close(tld + tild, np.zeros(BATCH), atol=1e-9)
+
+
+@pytest.mark.parametrize("kind", LAYERS)
+@pytest.mark.parametrize("direction", ["forward", "inverse"])
+def test_layer_param_grads_match_jax(kind, direction):
+    jl, tl, p, x = loaded_pair(kind, seed=2)
+    rng = np.random.default_rng(3)
+    cy = rng.standard_normal(x.shape)
+    cld = rng.standard_normal(BATCH)
+
+    def jloss(q):
+        y, ld = getattr(jl, direction)(q, jnp.asarray(x))
+        return jnp.sum(cy * y) + jnp.sum(cld * ld)
+
+    jgrad = jax_named(jax.grad(jloss)(p))
+    y, ld = getattr(tl, direction)(t(x))
+    (torch.sum(t(cy) * y) + torch.sum(t(cld) * ld)).backward()
+    tgrad = named_grads(tl)
+    assert set(tgrad) == set(jgrad)
+    for name, g in jgrad.items():
+        close(tgrad[name], g, rtol=1e-9, atol=1e-11, msg=name)
+
+
+@pytest.mark.parametrize("kind", LAYERS)
+def test_params_bridge_round_trip(kind):
+    jl, tl, p, _ = loaded_pair(kind)
+    back = tparams.to_numpy(tl)
+    assert jax.tree.structure(back) == jax.tree.structure(p)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(p)):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+def test_ar_masks_and_init_match_jax(periodic):
+    """The stacked conditioners' row masks are JAX's, and each MLP's first
+    layer fills its effective fan-in bound, 1/sqrt((2 if periodic else 1)*i),
+    on visible rows."""
+    jl = jb.SplineAR(AR_DIM, num_bins=K, hidden_dim=64, periodic=periodic)
+    tl = tb.SplineAR(AR_DIM, num_bins=K, hidden_dim=64, periodic=periodic,
+                     generator=torch.Generator().manual_seed(0), **F64)
+    np.testing.assert_array_equal(tl.cond.row_masks.numpy(),
+                                  np.asarray(jl.cond.row_masks()))
+    w1 = tl.cond.w1.detach().numpy()
+    for i in range(1, AR_DIM):
+        bound = 1.0 / np.sqrt((2.0 if periodic else 1.0) * i)
+        assert np.abs(w1[i - 1]).max() <= bound
+        assert np.abs(w1[i - 1]).max() > 0.9 * bound
+    assert np.abs(tl.init_raw.detach().numpy()).max() <= 0.5
+
+
+def test_ar_dim1_has_no_conditioner():
+    jl, tl = jb.SplineAR(1, num_bins=K), tb.SplineAR(1, num_bins=K, **F64)
+    p = perturbed(jl.init(jax.random.PRNGKey(0)), 0)
+    tparams.from_jax(tl, p)
+    x = np.random.default_rng(0).standard_normal((BATCH, 1))
+    close(tl.forward(t(x))[0], jl.forward(p, jnp.asarray(x))[0])
+    close(tl.inverse(t(x))[1], jl.inverse(p, jnp.asarray(x))[1])
+
+
+# ------------------------------------------------------- the NSF_CL flow
+def build_flows(seed=3):
+    """The bench's spline stack (3 SplineCoupling layers, masks (0,), (1,),
+    (2,)) at a small size, in both packages, with shared params."""
+    kw = dict(num_bins=K, tail_bound=B, hidden_dim=HIDDEN)
+    jflow = JFlow(jd.DiagNormal(DIM), jb.Chain(
+        [jb.SplineCoupling(SIZE, SPACE, mask=(a,), **kw) for a in range(3)]))
+    tflow = nft.NormalizingFlow(td.DiagNormal(DIM, **F64), tb.Chain(
+        [tb.SplineCoupling(SIZE, SPACE, mask=(a,), **kw, **F64)
+         for a in range(3)]))
+    p = perturbed(jflow.init(jax.random.PRNGKey(seed)), seed, scale=0.3)
+    tparams.from_jax(tflow, p)
+    return jflow, p, tflow
+
+
+def test_spline_flow_reverse_kl_and_grads_match_jax():
+    jflow, p, tflow = build_flows()
+    jtarget, ttarget = JFunnel(DIM), NealsFunnel(DIM)
+    key = jax.random.PRNGKey(6)
+    z = jflow.prior.sample(key, BATCH)
+    jloss, jgrad = jax.value_and_grad(
+        lambda q: j_reverse_kl(jflow, q, jtarget, key, BATCH))(p)
+    tloss = reverse_kl(tflow, ttarget, z=t(z))
+    tloss.backward()
+    close(tloss, jloss)
+    grads = named_grads(tflow)
+    flat = jax.tree_util.tree_flatten_with_path(jgrad)[0]
+    assert len(flat) == len(grads)
+    for path, g in flat:
+        name = ".".join(["bijector.bijectors", str(path[0].idx)]
+                        + [k.key for k in path[1:]])
+        close(grads[name], g, rtol=1e-9, atol=1e-11, msg=name)
+
+
+def test_spline_line_schedule_matches_optax():
+    """The spline line's optimizer: peak 5e-4, warmup 300, over 2250."""
+    ref = optax.warmup_cosine_decay_schedule(0.0, 5e-4, warmup_steps=300,
+                                             decay_steps=2250)
+    prm = [torch.nn.Parameter(torch.zeros(2, **F64))]
+    ours = bench_optimizer(prm, 2250, warmup_steps=300, peak_lr=5e-4)
+    for k in (0, 1, 150, 299, 300, 301, 1000, 2249, 2250):
+        close(ours.schedule(k), float(ref(k)), rtol=1e-6, atol=1e-12,
+              msg=f"step {k}")
+
+
+def jax_run_draws(key, chains, dim, num_warmup, num_samples):
+    """Every transition's raw draws (jitter u (chains, 1), momentum normals
+    (chains, dim), accept u (chains,)) in the order JAX's chain-batched
+    run_hmc consumes them (thin 1)."""
+    @jax.jit
+    def draws(k):
+        def one(kc):
+            k_mom, k_acc, k_eps = jax.random.split(kc, 3)
+            return (jax.random.uniform(k_eps, (), jnp.float64, -1.0, 1.0),
+                    jax.random.normal(k_mom, (dim,), jnp.float64),
+                    jax.random.uniform(k_acc, (), jnp.float64))
+        u, normal, ua = jax.vmap(one)(jax.random.split(k, chains))
+        return u[:, None], normal, ua
+
+    keys = []
+    if num_warmup > 0:
+        k_warm, key = jax.random.split(key)
+        keys += list(jax.random.split(k_warm, j_padded_length(num_warmup)))
+    keys += list(jax.random.split(key, j_padded_length(num_samples)))
+    return [tuple(t(a) for a in draws(k)) for k in keys]
+
+
+def test_neutra_spline_run_matches_jax():
+    """JAX's neutra_hmc on the NSF_CL flow against the port's run_hmc on
+    the chain-batched pullback fed JAX's own chain inits and draws, then
+    the port's chunked push. A fixed step: with dual averaging the two runs
+    part at ~1e-6 within ten transitions, the rounding amplification
+    ROADMAP Queue 3 records for RealNVP."""
+    jflow, p, tflow = build_flows()
+    chains, draws_n, warmup = 16, 8, 0
+    kw = dict(num_warmup=warmup, step_size=0.01, num_leapfrog=4)
+    key = jax.random.PRNGKey(11)
+    jres = j_neutra_hmc(key, jflow, p, JFunnel(DIM), chains, draws_n, **kw)
+    k_init, k_run = jax.random.split(key)
+    z0 = jflow.prior.sample(k_init, chains)
+    draws = jax_run_draws(k_run, chains, DIM, warmup, draws_n)
+    tres = run_hmc(None, pullback_logprob_batched(tflow, NealsFunnel(DIM)),
+                   t(z0), draws_n, draws=draws, device="cpu", **kw)
+    xs = push_to_data(tflow, tres.samples, chunk=10)
+    close(tres.samples, jres.samples_z, rtol=1e-8, atol=1e-10)
+    close(xs, jres.samples_x, rtol=1e-8, atol=1e-10)
+    close(tres.accept_rate, jres.accept_rate, rtol=1e-8)
+    close(tres.step_size, jres.step_size, rtol=1e-8)
+    assert 0.5 < float(tres.accept_rate) < 0.95  # mixed accepts
+
+
+def test_push_chunked_equals_unchunked():
+    """Rows are independent, so the chunk size changes no value. The CPU's
+    matrix products may sum a one-row chunk in another order than a full
+    block, hence equality to 1e-14 and not bit for bit."""
+    _, _, tflow = build_flows()
+    zs = t(np.random.default_rng(8).standard_normal((7, 9, DIM)) * 1.5)
+    whole = push_to_data(tflow, zs, chunk=10**9)
+    with torch.no_grad():
+        direct = tflow.inverse(zs.reshape(-1, DIM))[0].reshape(zs.shape)
+    assert torch.equal(whole, direct)
+    for chunk in (1, 5, 16, 62, 63):
+        torch.testing.assert_close(push_to_data(tflow, zs, chunk=chunk),
+                                   whole, rtol=1e-14, atol=1e-14)
+
+
+# ------------------------------------------------------- particle priors
+def test_gaussian_mixture_matches_jax():
+    centers = [[0.5, -0.25], [-1.0, 0.75], [0.0, 2.0]]
+    # JAX keeps centers and vars in float32 even under x64, so its
+    # normalizing term log(2 pi) + log(vars) is a float32 sum: log_prob
+    # agrees to float32 rounding of that constant (1e-8 relative). With
+    # unit vars it is common to all components and drops out of the force,
+    # which agrees at 1e-10; with unequal vars it weighs the components.
+    for vars, force_tol in ((1.0, (RTOL, 1e-12)),
+                            ([0.25, 1.0, 4.0], (1e-6, 1e-8))):
+        jm = jd.GaussianMixture(centers, vars, npoints=5, point_dim=2)
+        tm = td.GaussianMixture(centers, vars, npoints=5, point_dim=2, **F64)
+        x = np.random.default_rng(9).standard_normal((BATCH, 10)) * 1.5
+        close(tm.log_prob(t(x)), jm.log_prob(jnp.asarray(x)), rtol=5e-8,
+              atol=0)
+        close(tm.force(t(x)), jm.force(jnp.asarray(x)), *force_tol)
+    draws = tm.sample(40000, generator=torch.Generator().manual_seed(0))
+    assert draws.shape == (40000, 10) and draws.dtype == torch.float64
+    ref = np.asarray(jm.sample(jax.random.PRNGKey(0), 40000))
+    close(draws.mean(0), ref.mean(0), rtol=0, atol=0.05)
+    close(draws.std(0), ref.std(0), rtol=0.03)
+
+
+@pytest.mark.parametrize("boxlength", [None, 2.0])
+def test_einstein_crystal_matches_jax(boxlength):
+    rng = np.random.default_rng(10)
+    centers = rng.uniform(-0.9, 0.9, (4, 3)).astype(np.float32)
+    jc = jd.EinsteinCrystal(centers, alpha=50.0, boxlength=boxlength)
+    tc = td.EinsteinCrystal(centers.astype(np.float64), alpha=50.0,
+                            boxlength=boxlength, **F64)
+    # deviations up to 1.8: with the box they wrap past half its length
+    x = (centers.reshape(1, -1).astype(np.float64)
+         + rng.uniform(-1.8, 1.8, (BATCH, 12)))
+    close(tc.log_prob(t(x)), jc.log_prob(jnp.asarray(x)))
+    if boxlength is not None:
+        unwrapped = td.EinsteinCrystal(centers.astype(np.float64), alpha=50.0,
+                                       **F64)
+        assert not torch.allclose(tc.log_prob(t(x)),
+                                  unwrapped.log_prob(t(x)))
+    draws = tc.sample(20000, generator=torch.Generator().manual_seed(1))
+    ref = np.asarray(jc.sample(jax.random.PRNGKey(1), 20000))
+    assert draws.shape == ref.shape == (20000, 12)
+    if boxlength is None:
+        close(draws.mean(0), ref.mean(0), rtol=0, atol=0.01)
+        close(draws.std(0), ref.std(0), rtol=0.03)
+    else:  # wrapped into the box; compare the law through the density
+        assert float(draws.abs().max()) <= boxlength / 2
+        close(tc.log_prob(draws).mean(), jc.log_prob(ref).mean(), rtol=0,
+              atol=0.1)
