@@ -11,7 +11,10 @@ Phases, each printing its own line; any failure exits non-zero:
   2. build  : compiles every CUDA kernel from csrc/ with nvcc, in parallel;
   3. kernels: each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and beyond, with NaN/inf rows; times
-              with CUDA events beside the plain version and the byte bound;
+              with CUDA events beside the plain version and the byte bound.
+              The RQS backward kernel is held against the closed-form plain
+              VJP in float64, beside the float32 autograd recompute of the
+              twin that it replaced (its error and time are printed too);
   4. main   : the bench's funnel line at full width -- RealNVP (ActNorm +
               2 x AffineCoupling, hidden 128) on NealsFunnel(64), reverse-KL
               training at batch 4096, NeuTra-HMC with 8192 chains, warmup
@@ -21,12 +24,13 @@ Phases, each printing its own line; any failure exits non-zero:
               SplineCoupling (32 particles x 3, 32 bins, B = 6, hidden 354)
               on NealsFunnel(96), 2250 reverse-KL steps at batch 1024,
               NeuTra-HMC with 4096 chains, warmup 100, 256 draws, L=8 --
-              with exact launch counts of both kernels, each layer's kernel
-              held against its plain version on the trained flow, a round
-              trip, the training's progress, and HMC moving var(v) from the
-              flow's toward the funnel's 9; the band |v_mean| < 0.5,
-              |v_var - 9| < 3 is reported, not enforced (this configuration
-              misses it: ROADMAP Queue 3);
+              with exact launch counts of the three kernels (the RQS
+              forward and backward, accept/select), each layer's RQS
+              kernels held against their plain versions on the trained
+              flow, a round trip, the training's progress, and HMC moving
+              var(v) from the flow's toward the funnel's 9; the band
+              |v_mean| < 0.5, |v_var - 9| < 3 is reported, not enforced
+              (this configuration misses it: ROADMAP Queue 3);
   6. spline_ar: the NSF_AR flow of configs/LJ.yaml at full width (2 x
               SplineAR(96, 32 bins, hidden 354, periodic) on an
               EinsteinCrystal prior from data/lj_fcc_ref.xyz): density
@@ -74,6 +78,13 @@ RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
 # tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
 RQS_Y_TOL = dict(atol=2e-5, rtol=1e-5)  # against the float64 plain version
 RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
+# The backward kernel computes in float64 and rounds each gradient to
+# float32 once (relative 6e-8), so it is held to the float64 plain VJP at
+# rtol 1e-5; atol 1e-5 covers entries whose float64 terms cancel to ~0.
+# It must also be no farther from the float64 VJP than the float32 autograd
+# recompute of the twin, the backward it replaced.
+RQS_GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
+VJP_REPS = 20  # timing repetitions of the backward and its plain versions
 
 # The NSF_AR flow of configs/LJ.yaml: 32 LJ particles at rho 1.28.
 LJ_XYZ = Path(__file__).resolve().parent / "data" / "lj_fcc_ref.xyz"
@@ -362,17 +373,70 @@ def compare_rqs(y_k, ld_k, y_r, ld_r, label):
     return tuple(errs)
 
 
-def rqs_bound(n, k):
-    """Least time for N scalars with K bins: x, w, h, d read once, y and
-    log-det written once; operations counted from the jnp function (about
-    11K per softmax-floor-cumsum of w and h, 5K for the derivatives, K
-    comparisons, 50 for the map and its log-det), at the fp32 rate."""
-    nbytes = 4 * n * (1 + 2 * k + (k - 1) + 2)
-    ops = n * (28 * k + 50)
+SECTOR_WORDS = 8  # float32 words in a 32-byte sector, the unit of access
+
+
+def sector_bytes(need):
+    """Bytes of the distinct 32-byte sectors holding the words that `need`
+    (bool, shaped like a contiguous float32 array) marks."""
+    flat = need.reshape(-1)
+    flat = torch.cat([flat, flat.new_zeros(-flat.numel() % SECTOR_WORDS)])
+    return 4 * SECTOR_WORDS * int(flat.view(-1, SECTOR_WORDS).any(1).sum())
+
+
+def bound(nbytes, ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_FLOPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes)
+
+
+def rqs_bounds(x, w, h, inverse, bounds):
+    """Least times of the forward and of the VJP on this run's data, counted
+    in the 32-byte sectors the function must read and write.
+
+    A row outside the domain (NaN included) needs x alone: y = x, log-det
+    0, gx = grad_y, and zero parameter gradients. A row inside needs all of
+    its w and h (the softmaxes), grad_ld, and of d only its bin's two
+    derivative logits (one at the edge bins 0 and K-1, whose outer slope is
+    pinned); the bin is found on the float64 knots. Every output is written
+    whole: y and log-det, or gx, gw, gh and gd. Operations are counted from
+    the jnp function for the rows inside (about 11K per softmax-floor-cumsum
+    of w and h, 5K for the derivatives, K comparisons, 50 for the map; the
+    VJP adds the map's reverse, about 150, and the spread onto 2K logits,
+    about 8K), at the fp32 rate.
+
+    Returns (forward bound, VJP bound, what was counted), each bound as
+    (ms, "bytes" or "operations", bytes)."""
+    from normalizingflow_tpu_torch.bijectors.rqs import (
+        DEFAULT_MIN_BIN_HEIGHT,
+        DEFAULT_MIN_BIN_WIDTH,
+        _normalize_bins,
+        _search_bins,
+    )
+
+    left, right, bottom, top = bounds
+    lo, hi = (bottom, top) if inverse else (left, right)
+    n, k = w.shape
+    inside = (x >= lo) & (x <= hi)
+    knots, _ = _normalize_bins(
+        (h if inverse else w).double(), k,
+        DEFAULT_MIN_BIN_HEIGHT if inverse else DEFAULT_MIN_BIN_WIDTH, lo, hi)
+    idx = _search_bins(knots, x.double().clamp(lo, hi))[:, None]
+    m = torch.arange(k - 1, device=x.device)
+    need_d = inside[:, None] & ((m == idx - 1) | (m == idx))
+    every = torch.ones_like(inside)
+    column = sector_bytes(every)                  # x, y, log-det, gy, gx
+    params = sector_bytes(inside[:, None].expand(n, k))  # w or h
+    d_read = sector_bytes(need_d)
+    n_in = int(inside.sum())
+    fwd = bound(3 * column + 2 * params + d_read, n_in * (28 * k + 50))
+    vjp = bound(3 * column + sector_bytes(inside) + 2 * params + d_read
+                + 2 * sector_bytes(every[:, None].expand(n, k))
+                + sector_bytes(every[:, None].expand(n, k - 1)),
+                n_in * (36 * k + 200))
+    return fwd, vjp, dict(rows_inside=n_in / n,
+                          d_bytes_per_row_inside=d_read / max(n_in, 1))
 
 
 def check_rqs(n, k, bname, inverse, gen, flush):
@@ -393,14 +457,94 @@ def check_rqs(n, k, bname, inverse, gen, flush):
                       flush=flush)
     plain_ms = cuda_time_ms(lambda: plain_rqs(x, w, h, d, inverse, *bounds),
                             flush=flush)
-    bound_ms, bound_by, nbytes = rqs_bound(n, k)
+    fwd_bound, vjp_bound, counted = rqs_bounds(x, w, h, inverse, bounds)
+    bound_ms, bound_by, nbytes = fwd_bound
     log(f"kernels: rqs {label} f32 ok: max_abs_err y {err_y:.3g} ld "
         f"{err_ld:.3g} (float32 plain: y {gap_y:.3g} ld {gap_ld:.3g}), "
         f"ms {ms:.5f}, plain_ms {plain_ms:.5f}, bound_ms "
-        f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.1f} MB), share of "
+        f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.2f} MB; rows inside "
+        f"{counted['rows_inside']:.4f}, d "
+        f"{counted['d_bytes_per_row_inside']:.2f} B a row inside), share of "
         f"bound {bound_ms / ms:.3f}")
-    return dict(max_abs_err=max(err_y, err_ld), ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+    fwd = dict(max_abs_err=max(err_y, err_ld), ms=ms, plain_ms=plain_ms,
+               bound_ms=bound_ms, bound_by=bound_by)
+    return fwd, check_rqs_vjp(x, w, h, d, inverse, bounds, label, gen,
+                              flush, vjp_bound)
+
+
+def vjp64(x, w, h, d, grad_y, grad_ld, inverse, *bounds):
+    """The plain VJP evaluated in float64 on the same (float32) inputs."""
+    from normalizingflow_tpu_torch.ops.rqs import rqs_vjp_plain
+
+    return rqs_vjp_plain(*(t.double() for t in (x, w, h, d, grad_y,
+                                                grad_ld)), inverse, *bounds)
+
+
+def compare_vjp(got, want, label):
+    """Backward kernel (gx, gw, gh, gd) against the float64 plain VJP: NaN
+    in the same places, finite entries at RQS_GRAD_TOL. Returns the largest
+    finite |difference|."""
+    err = 0.0
+    for name, a, b in zip(("gx", "gw", "gh", "gd"), got, want):
+        a = a.double()
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise AssertionError(f"rqs vjp {label}: {name} NaN positions "
+                                 f"differ")
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(
+            a[fin], b[fin], **RQS_GRAD_TOL,
+            msg=lambda m, name=name: f"rqs vjp {label} {name}: {m}")
+        if bool(fin.any()):
+            err = max(err, float((a[fin] - b[fin]).abs().max()))
+    return err
+
+
+def vjp_gap(got, want):
+    """Largest |difference| over the entries finite in both."""
+    gap = 0.0
+    for a, b in zip(got, want):
+        a = a.double()
+        both = torch.isfinite(a) & torch.isfinite(b)
+        if bool(both.any()):
+            gap = max(gap, float((a[both] - b[both]).abs().max()))
+    return gap
+
+
+def check_rqs_vjp(x, w, h, d, inverse, bounds, label, gen, flush,
+                  vjp_bound):
+    from normalizingflow_tpu_torch.ops.rqs import (
+        rqs_vjp_cuda,
+        rqs_vjp_plain,
+        twin_vjp,
+    )
+
+    gy = torch.randn(x.shape, device=x.device, generator=gen)
+    gld = torch.randn(x.shape, device=x.device, generator=gen)
+    args = (x, w, h, d, gy, gld, inverse, *bounds)
+    want = vjp64(*args)
+    got = rqs_vjp_cuda(*args)  # CUDA tensors: the kernel
+    torch.cuda.synchronize()
+    err = compare_vjp(got, want, label)
+    gap = vjp_gap(twin_vjp(*args), want)
+    if not err <= gap:
+        raise AssertionError(f"rqs vjp {label}: kernel off the float64 VJP "
+                             f"by {err}, the float32 autograd it replaced "
+                             f"by {gap}")
+    ms = cuda_time_ms(lambda: rqs_vjp_cuda(*args), reps=VJP_REPS,
+                      flush=flush)
+    plain_ms = cuda_time_ms(lambda: rqs_vjp_plain(*args), reps=VJP_REPS,
+                            flush=flush)
+    recompute_ms = cuda_time_ms(lambda: twin_vjp(*args), reps=VJP_REPS,
+                                flush=flush)
+    bound_ms, bound_by, nbytes = vjp_bound
+    log(f"kernels: rqs_vjp {label} f32 ok: max_abs_err {err:.3g} (float32 "
+        f"autograd recompute: {gap:.3g}), ms {ms:.5f}, plain_ms "
+        f"{plain_ms:.5f}, recompute_ms {recompute_ms:.5f}, bound_ms "
+        f"{bound_ms:.5f} ({bound_by}, {nbytes / 1e6:.2f} MB), share of "
+        f"bound {bound_ms / ms:.3f}")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                recompute_ms=recompute_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 # ------------------------------------------------------------ spline line
@@ -417,14 +561,15 @@ def build_spline_flow(gen, device):
         for a in range(SP_SPACE)]))
 
 
-def spline_layer_checks(flow, z):
-    """Each SplineCoupling's kernel against the plain version on the
-    layer's own w, h, d: inverse from z down to x, then forward back up.
-    Returns (max |err| y, max |err| log-det)."""
-    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda
+def spline_layer_checks(flow, z, gen):
+    """Each SplineCoupling's kernels against the plain versions on the
+    layer's own w, h, d: inverse from z down to x, then forward back up;
+    the backward kernel with random cotangents. Returns (max |err| y,
+    max |err| log-det, max |err| of the VJP)."""
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
 
     layers = list(flow.bijector.bijectors)
-    errs = []
+    errs, vjp_errs = [], []
     with torch.no_grad():
         y = z
         for inverse, order in ((True, layers[::-1]), (False, layers)):
@@ -432,12 +577,18 @@ def spline_layer_checks(flow, z):
                 cond, trans = layer.split(y)
                 w, h, d = layer.spline_params(cond)
                 b = (-layer.tail_bound, layer.tail_bound) * 2
+                label = f"trained layer {i} inverse={inverse}"
                 got = rqs_cuda(trans, w, h, d, inverse, *b)
                 want = plain64(trans, w, h, d, inverse, *b)
-                errs.append(compare_rqs(
-                    *got, *want, f"trained layer {i} inverse={inverse}"))
+                errs.append(compare_rqs(*got, *want, label))
+                cot = [torch.randn(trans.shape, device=trans.device,
+                                   generator=gen) for _ in range(2)]
+                vjp_errs.append(compare_vjp(
+                    rqs_vjp_cuda(trans, w, h, d, *cot, inverse, *b),
+                    vjp64(trans, w, h, d, *cot, inverse, *b), label))
                 y = layer.join(cond, got[0])
-    return max(e[0] for e in errs), max(e[1] for e in errs)
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            max(vjp_errs))
 
 
 def round_trip(flow, z):
@@ -461,7 +612,7 @@ def spline_line(seed, device="cuda"):
     )
     from normalizingflow_tpu_torch.mcmc.neutra import PUSH_CHUNK
     from normalizingflow_tpu_torch.ops.hmc import accept_select
-    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
     from normalizingflow_tpu_torch.targets import NealsFunnel
     from normalizingflow_tpu_torch.train.loop import train
     from normalizingflow_tpu_torch.train.objectives import reverse_kl
@@ -476,6 +627,7 @@ def spline_line(seed, device="cuda"):
 
     accept_select.launches = 0
     rqs_cuda.launches = 0
+    rqs_vjp_cuda.launches = 0
     t0 = time.perf_counter()
     final_kl = train(flow, target, SP_TRAIN_STEPS, SP_BATCH, gen,
                      device=device, warmup_steps=SP_LR_WARMUP,
@@ -483,6 +635,7 @@ def spline_line(seed, device="cuda"):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     train_launches = rqs_cuda.launches
+    train_vjp_launches = rqs_vjp_cuda.launches
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -493,16 +646,21 @@ def spline_line(seed, device="cuda"):
     end.record()
     torch.cuda.synchronize()
     rqs_launches = rqs_cuda.launches
+    vjp_launches = rqs_vjp_cuda.launches
     acc_launches = accept_select.launches
     sample_s = start.elapsed_time(end) / 1e3
     # the flow's own push-forward, where the chains start
     v_flow = push_to_data(flow, flow.prior.sample(
         SP_CHAINS, generator=gen))[:, 0]
 
+    # Every train step and every gradient evaluation runs each layer's
+    # forward kernel once and, in its backward, the VJP kernel once; the
+    # push (no gradient) runs the forward only, once a chunk.
     transitions = padded_length(WARMUP) + padded_length(SP_DRAWS)
     grad_evals = 1 + LEAPFROG * transitions
     chunks = -(-SP_CHAINS * SP_DRAWS // PUSH_CHUNK)
     expected = layers * (SP_TRAIN_STEPS + grad_evals + chunks)
+    expected_vjp = layers * (SP_TRAIN_STEPS + grad_evals)
 
     xs = res.samples_x
     bulk_x = bulk_ess_per_dim(xs)
@@ -520,7 +678,9 @@ def spline_line(seed, device="cuda"):
         draws=SP_DRAWS, leapfrog=LEAPFROG, transitions=transitions,
         gradient_evaluations=grad_evals, push_chunks=chunks,
         rqs_launches=rqs_launches, rqs_launches_train=train_launches,
-        rqs_launches_expected=expected, accept_launches=acc_launches,
+        rqs_launches_expected=expected, rqs_vjp_launches=vjp_launches,
+        rqs_vjp_launches_train=train_vjp_launches,
+        rqs_vjp_launches_expected=expected_vjp, accept_launches=acc_launches,
         accept=accept, step_size=float(res.step_size),
         v_mean=v_mean, v_var=v_var,
         v_in_band=abs(v_mean) < 0.5 and abs(v_var - 9.0) < 3.0,
@@ -536,6 +696,9 @@ def spline_line(seed, device="cuda"):
     if rqs_launches != expected:
         raise AssertionError(f"rqs launched {rqs_launches} times, the code "
                              f"implies {expected}")
+    if vjp_launches != expected_vjp:
+        raise AssertionError(f"rqs_vjp launched {vjp_launches} times, the "
+                             f"code implies {expected_vjp}")
     if acc_launches != transitions:
         raise AssertionError(f"accept_select launched {acc_launches} times "
                              f"for {transitions} transitions")
@@ -557,17 +720,18 @@ def spline_line(seed, device="cuda"):
                              f"{flow_v_var}, HMC {v_var}")
 
     z = res.samples_z[0]
-    err_y, err_ld = spline_layer_checks(flow, z)
+    err_y, err_ld, err_vjp = spline_layer_checks(flow, z, gen)
     rt_z, rt_ld = round_trip(flow, z)
-    log(f"spline: trained-flow kernel vs plain on {z.shape[0]} pushed "
+    log(f"spline: trained-flow kernels vs plain on {z.shape[0]} pushed "
         f"draws, {layers} layers x 2 directions ok: max_abs_err y "
-        f"{err_y:.3g} ld {err_ld:.3g}; round trip max |z err| {rt_z:.3g}, "
-        f"max |log-det sum| {rt_ld:.3g}")
+        f"{err_y:.3g} ld {err_ld:.3g} vjp {err_vjp:.3g}; round trip max "
+        f"|z err| {rt_z:.3g}, max |log-det sum| {rt_ld:.3g}")
     if not rt_z <= 1e-4 or not rt_ld <= 1e-3:
         raise AssertionError(f"spline round trip off: z {rt_z}, "
                              f"log-det {rt_ld}")
-    return dict(rqs=rqs_launches, accept_select=acc_launches,
-                max_abs_err=max(err_y, err_ld))
+    return dict(rqs=rqs_launches, rqs_vjp=vjp_launches,
+                accept_select=acc_launches, max_abs_err=max(err_y, err_ld),
+                max_abs_err_vjp=err_vjp)
 
 
 # --------------------------------------------------------------- NSF_AR
@@ -585,7 +749,7 @@ def spline_ar_phase(seed, device="cuda"):
     from normalizingflow_tpu_torch import NormalizingFlow
     from normalizingflow_tpu_torch.bijectors import Chain, SplineAR
     from normalizingflow_tpu_torch.distributions import EinsteinCrystal
-    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
 
     centers, box = read_xyz(LJ_XYZ)
     # configs/LJ.yaml gives rho: the half box (N / (8 rho))^(1/3) is the
@@ -602,6 +766,7 @@ def spline_ar_phase(seed, device="cuda"):
     x0 = prior.sample(LJ_POINTS, generator=gen)
 
     rqs_cuda.launches = 0
+    rqs_vjp_cuda.launches = 0
     with torch.no_grad():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -612,6 +777,7 @@ def spline_ar_phase(seed, device="cuda"):
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches = rqs_cuda.launches
+    vjp_launches = rqs_vjp_cuda.launches
     expected = LJ_LAYERS * (1 + dim)
 
     # each layer's kernel against the plain version on its own w, h, d:
@@ -636,15 +802,16 @@ def spline_ar_phase(seed, device="cuda"):
                  hidden=SP_HIDDEN, tail_bound=tail, boxlength=box,
                  points=LJ_POINTS, log_prob_s=t1 - t0, sample_s=t2 - t1,
                  rqs_launches=launches, rqs_launches_expected=expected,
-                 mean_log_prob=float(lp.mean()),
+                 rqs_vjp_launches=vjp_launches, mean_log_prob=float(lp.mean()),
                  mean_log_px=float(log_px.mean()),
                  max_abs_err_y=max(e[0] for e in errs),
                  max_abs_err_ld=max(e[1] for e in errs),
                  round_trip_z=rt_z, round_trip_log_det=rt_ld)
     log("spline_ar: " + json.dumps(stats))
-    if launches != expected:
-        raise AssertionError(f"NSF_AR: rqs launched {launches} times, the "
-                             f"code implies {expected}")
+    if launches != expected or vjp_launches != 0:
+        raise AssertionError(f"NSF_AR: rqs launched {launches} times and "
+                             f"rqs_vjp {vjp_launches}, the code implies "
+                             f"{expected} and 0 (no gradient)")
     if not all(bool(torch.isfinite(t).all()) for t in (lp, xs, log_px)):
         raise AssertionError("NSF_AR: non-finite output")
     if xs.shape != (LJ_POINTS, dim) or lp.shape != (LJ_POINTS,):
@@ -653,7 +820,8 @@ def spline_ar_phase(seed, device="cuda"):
     if not rt_z <= 1e-4 or not rt_ld <= 1e-3:
         raise AssertionError(f"NSF_AR round trip off: z {rt_z}, log-det "
                              f"{rt_ld}")
-    return dict(rqs=launches, max_abs_err=max(max(e) for e in errs))
+    return dict(rqs=launches, rqs_vjp=vjp_launches,
+                max_abs_err=max(max(e) for e in errs))
 
 
 def main(argv=None):
@@ -682,10 +850,12 @@ def main(argv=None):
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
     results = {shape: check_accept_select(*shape, gen, flush)
                for shape in KERNEL_SHAPES}
-    rqs_results = {
+    rqs_both = {
         (n, k, inverse, bname): check_rqs(n, k, bname, inverse, gen, flush)
         for n in RQS_ROWS for k in RQS_BINS for inverse in (True, False)
         for bname in RQS_BOUNDS}
+    rqs_results = {key: r[0] for key, r in rqs_both.items()}
+    vjp_results = {key: r[1] for key, r in rqs_both.items()}
     del flush
     torch.cuda.empty_cache()
 
@@ -705,6 +875,7 @@ def main(argv=None):
             plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
             bound_by=timed["bound_by"], library_ms=None)
 
+    main_shape = (SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS, True, "sym")
     kernels = [
         entry("accept_select",
               "normalizingflow_tpu_torch/csrc/accept_select.cu",
@@ -715,10 +886,15 @@ def main(argv=None):
         entry("rqs", "normalizingflow_tpu_torch/csrc/rqs.cu",
               "normalizingflow_tpu/ops/rqs_pallas.py:45",
               dict(spline=spline["rqs"], spline_ar=spline_ar["rqs"]),
-              rqs_results[(SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS,
-                           True, "sym")],
+              rqs_results[main_shape],
               [r["max_abs_err"] for r in rqs_results.values()]
               + [spline["max_abs_err"], spline_ar["max_abs_err"]]),
+        entry("rqs_vjp", "normalizingflow_tpu_torch/csrc/rqs.cu",
+              "normalizingflow_tpu/ops/rqs_pallas.py:264",
+              dict(spline=spline["rqs_vjp"], spline_ar=spline_ar["rqs_vjp"]),
+              vjp_results[main_shape],
+              [r["max_abs_err"] for r in vjp_results.values()]
+              + [spline["max_abs_err_vjp"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,13 @@ Softplus is JAX's `logaddexp(x, 0)`, not `torch.nn.functional.softplus`,
 whose threshold of 20 returns x itself and departs from JAX in float64.
 
 `apply_rqs` is the transform the flow layers call. On CUDA tensors it always
-runs the hand-written kernel (ops/rqs.py, csrc/rqs.cu) through an autograd
-Function whose backward is autograd through `unconstrained_rqs` below; on
-CPU tensors it runs `unconstrained_rqs`. The JAX package's element-count
+runs the hand-written kernels (ops/rqs.py, csrc/rqs.cu) through an autograd
+Function: the forward kernel, and a backward kernel that computes the VJP
+in one pass, so no plain version runs in a gradient on the card. On CPU
+tensors it runs `unconstrained_rqs` below and autograd through it; on the
+card that twin serves only the checks. The JAX package's element-count
 gate and its `set_fused_rqs` switch calibrate the TPU's fusion trade-offs
-and are not ported: on the card every call goes to the kernel.
+and are not ported: on the card every call goes to the kernels.
 """
 
 from __future__ import annotations
@@ -171,15 +173,16 @@ def unconstrained_rqs(inputs, unnormalized_widths, unnormalized_heights,
 
 def apply_rqs(inputs, w, h, d, *, inverse=False, tail_bound=None, left=None,
               right=None, bottom=None, top=None):
-    """`unconstrained_rqs` as the flow layers call it: the CUDA kernel on
-    CUDA tensors (float32; anything else raises), the plain twin on CPU."""
+    """`unconstrained_rqs` as the flow layers call it: the CUDA kernels,
+    forward and backward, on CUDA tensors (float32; anything else raises),
+    the plain twin on CPU."""
     left, right, bottom, top = resolve_bounds(tail_bound, left, right,
                                               bottom, top)
     if inputs.is_cuda:
-        from ..ops.rqs import rqs_cuda, unconstrained_rqs_fused
+        from ..ops.rqs import unconstrained_rqs_fused
 
         return unconstrained_rqs_fused(inputs, w, h, d, inverse, left, right,
-                                       bottom, top, forward=rqs_cuda)
+                                       bottom, top)
     if inputs.device.type != "cpu":
         raise ValueError(f"apply_rqs: unsupported device {inputs.device}")
     return unconstrained_rqs(inputs, w, h, d, inverse=inverse, left=left,

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and becomes its own
 shared library, compiled for sm_90a into `_build/` inside the package
 (listed in .gitignore). The library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and a stale build is never
-loaded. `build` starts one nvcc per missing library, all at once.
+loaded. `build` starts one nvcc per missing library, all at once. Another
+`source_dir` builds the sources there the same way (tools build edited
+copies of a kernel so).
 """
 
 from __future__ import annotations
@@ -38,15 +40,16 @@ def _nvcc():
     return found
 
 
-def library_path(name):
-    src = SOURCE_DIR / f"{name}.cu"
+def library_path(name, source_dir=SOURCE_DIR):
+    src = Path(source_dir) / f"{name}.cu"
     digest = hashlib.sha1(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names):
-    """Compile every library in `names` that is not built yet, in parallel.
+def build(names, source_dir=SOURCE_DIR):
+    """Compile every library in `names` (`<source_dir>/<name>.cu`) that is
+    not built yet, in parallel.
 
     Returns {name: nvcc's report (ptxas registers and spills), or "" if the
     library was already built}. Raises if any compile fails.
@@ -54,12 +57,12 @@ def build(names):
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, source_dir)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(SOURCE_DIR / f"{name}.cu")]
+               str(Path(source_dir) / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out)
@@ -77,10 +80,13 @@ def build(names):
     return reports
 
 
-def load(name):
-    """The loaded ctypes library for `csrc/<name>.cu`, built if needed."""
-    lib = _LIBRARIES.get(name)
+def load(name, source_dir=SOURCE_DIR):
+    """The loaded ctypes library for `<source_dir>/<name>.cu`, built if
+    needed."""
+    key = (name, str(source_dir))
+    lib = _LIBRARIES.get(key)
     if lib is None:
-        build([name])
-        lib = _LIBRARIES[name] = ctypes.CDLL(str(library_path(name)))
+        build([name], source_dir)
+        lib = _LIBRARIES[key] = ctypes.CDLL(
+            str(library_path(name, source_dir)))
     return lib

@@ -1,28 +1,40 @@
-"""Rational-quadratic spline transform: CUDA kernel and autograd boundary.
+"""Rational-quadratic spline transform: CUDA kernels and autograd boundary.
 
 Twin of normalizingflow_tpu/ops/rqs_pallas.py. `rqs_cuda` launches the
-hand-written sm_90a kernel in csrc/rqs.cu, which computes
-bijectors/rqs.py::unconstrained_rqs in one pass (one warp per scalar,
-float32 in and out, float64 inside);
-`unconstrained_rqs_fused` wraps a forward implementation in an autograd
-Function whose backward recomputes the plain twin and differentiates it,
-as the JAX custom_vjp does: there is no backward kernel there either.
+hand-written sm_90a forward kernel in csrc/rqs.cu, which computes
+bijectors/rqs.py::unconstrained_rqs in one pass (a group of lanes per
+scalar, float32 in and out, float64 inside). `rqs_vjp_cuda` launches the
+backward kernel of the same library: it recomputes the knots in registers
+and writes the vector-Jacobian product of the same function, the one
+`jax.vjp` of the JAX function gives (the JAX custom_vjp's backward is
+autodiff of its jnp path; this is that VJP in closed form).
+`rqs_vjp_plain` is the backward kernel's plain version, in tensor ops;
+`twin_vjp`, autograd through the twin, is the backward the kernel replaced,
+kept for the checks.
 
-The forward implementation is an argument: the flow layers
-(bijectors/rqs.py::apply_rqs) always pass `rqs_cuda`, and a CPU test can
-pass the twin to check the Function's gradient wiring.
+`unconstrained_rqs_fused` wraps a forward and a backward implementation in
+an autograd Function. The flow layers (bijectors/rqs.py::apply_rqs) pass
+the two kernels, so on the card no plain version runs in a gradient; the
+plain versions serve CPU tensors, the CPU tests (which pass them to check
+the Function's wiring) and chip_smoke.py's comparisons.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from ..bijectors.rqs import (
     DEFAULT_MIN_BIN_HEIGHT,
     DEFAULT_MIN_BIN_WIDTH,
     DEFAULT_MIN_DERIVATIVE,
+    _gather,
+    _normalize_bins,
+    _search_bins,
+    softplus,
     unconstrained_rqs,
 )
 from . import _build
@@ -30,37 +42,64 @@ from . import _build
 KERNEL = "rqs"
 MAX_BINS = 128
 
+# ctypes argument types of csrc/rqs.cu's entry points: pointers, n, (k,
+# inverse), the bounds and floors, the stream
+SIGNATURES = {
+    "nf_rqs_f32": ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
+                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 7
+                   + [ctypes.c_void_p]),
+    "nf_rqs_vjp_f32": ([ctypes.c_void_p] * 10 + [ctypes.c_int64]
+                       + [ctypes.c_int] * 2 + [ctypes.c_double] * 7
+                       + [ctypes.c_void_p]),
+}
+
+
+def bind(lib):
+    """Declare the signatures of those of SIGNATURES' entry points that the
+    loaded library `lib` has; returns it."""
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+    return lib
+
 
 def _library():
     lib = _build.load(KERNEL)
-    fn = lib.nf_rqs_f32
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 2 + [ctypes.c_double] * 7
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.nf_rqs_f32.argtypes is None:
+        bind(lib)
+    return lib
 
 
-def _check(x, w, h, d):
+def _check(x, w, h, d, **per_scalar):
+    """Validate the kernels' inputs; `per_scalar` are further tensors
+    shaped like x (the cotangents). Returns K."""
     k = w.shape[-1] if w.dim() else 0
     if not 2 <= k <= MAX_BINS:
         raise ValueError(f"the RQS kernel takes 2 <= K <= {MAX_BINS} bins, "
                          f"got K = {k}")
-    shapes = dict(x=(tuple(x.shape), tuple(x.shape)),
-                  w=(tuple(w.shape), tuple(x.shape) + (k,)),
-                  h=(tuple(h.shape), tuple(x.shape) + (k,)),
-                  d=(tuple(d.shape), tuple(x.shape) + (k - 1,)))
-    for (name, (got, want)), t in zip(shapes.items(), (x, w, h, d)):
+    xs = tuple(x.shape)
+    shapes = dict(x=(x, xs), w=(w, xs + (k,)), h=(h, xs + (k,)),
+                  d=(d, xs + (k - 1,)))
+    shapes.update((name, (t, xs)) for name, t in per_scalar.items())
+    for name, (t, want) in shapes.items():
         if not t.is_cuda or t.device != x.device:
             raise ValueError(f"{name} on {t.device}; the RQS kernel takes "
                              f"CUDA tensors on one device")
         if t.dtype != torch.float32:
             raise TypeError(f"the RQS kernel takes float32; {name} is "
                             f"{t.dtype}")
-        if got != want:
-            raise ValueError(f"{name} has shape {got}, expected {want}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{want}")
     return k
+
+
+def _consts(inverse, left, right, bottom, top):
+    return (int(bool(inverse)), float(left), float(right), float(bottom),
+            float(top), DEFAULT_MIN_BIN_WIDTH, DEFAULT_MIN_BIN_HEIGHT,
+            DEFAULT_MIN_DERIVATIVE)
 
 
 def rqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
@@ -78,13 +117,11 @@ def rqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
     wf = w.reshape(n, k).contiguous()
     hf = h.reshape(n, k).contiguous()
     df = d.reshape(n, k - 1).contiguous()
-    fn = _library()
+    lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(xf.data_ptr(), wf.data_ptr(), hf.data_ptr(), df.data_ptr(),
-             y.data_ptr(), ld.data_ptr(), n, k, int(bool(inverse)),
-             float(left), float(right), float(bottom), float(top),
-             DEFAULT_MIN_BIN_WIDTH, DEFAULT_MIN_BIN_HEIGHT,
-             DEFAULT_MIN_DERIVATIVE, stream)
+    err = lib.nf_rqs_f32(xf.data_ptr(), wf.data_ptr(), hf.data_ptr(),
+                         df.data_ptr(), y.data_ptr(), ld.data_ptr(), n, k,
+                         *_consts(inverse, left, right, bottom, top), stream)
     if err != 0:
         raise RuntimeError(f"rqs kernel launch failed: CUDA error {err}")
     rqs_cuda.launches += 1
@@ -94,42 +131,242 @@ def rqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
 rqs_cuda.launches = 0
 
 
+def rqs_vjp_cuda(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
+                 top):
+    """The VJP of unconstrained_rqs by the CUDA backward kernel on the
+    current stream: cotangents grad_y and grad_ld shaped like x, float32 on
+    x's device. Returns (gx, gw, gh, gd) shaped like (x, w, h, d). Raises
+    on inputs the kernel does not take and on a failed launch."""
+    k = _check(x, w, h, d, grad_y=grad_y, grad_ld=grad_ld)
+    xf = x.reshape(-1).contiguous()
+    n = xf.numel()
+    gx = torch.empty_like(xf)
+    gw = torch.empty(n, k, dtype=x.dtype, device=x.device)
+    gh = torch.empty_like(gw)
+    gd = torch.empty(n, k - 1, dtype=x.dtype, device=x.device)
+    shapes = (x.shape, w.shape, h.shape, d.shape)
+    if n == 0:
+        return tuple(g.reshape(s) for g, s in zip((gx, gw, gh, gd), shapes))
+    wf = w.reshape(n, k).contiguous()
+    hf = h.reshape(n, k).contiguous()
+    df = d.reshape(n, k - 1).contiguous()
+    gyf = grad_y.reshape(-1).contiguous()
+    gldf = grad_ld.reshape(-1).contiguous()
+    lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.nf_rqs_vjp_f32(
+        xf.data_ptr(), wf.data_ptr(), hf.data_ptr(), df.data_ptr(),
+        gyf.data_ptr(), gldf.data_ptr(), gx.data_ptr(), gw.data_ptr(),
+        gh.data_ptr(), gd.data_ptr(), n, k,
+        *_consts(inverse, left, right, bottom, top), stream)
+    if err != 0:
+        raise RuntimeError(f"rqs vjp kernel launch failed: CUDA error {err}")
+    rqs_vjp_cuda.launches += 1
+    return tuple(g.reshape(s) for g, s in zip((gx, gw, gh, gd), shapes))
+
+
+rqs_vjp_cuda.launches = 0
+
+
 def plain_rqs(x, w, h, d, inverse, left, right, bottom, top):
     """The twin with `rqs_cuda`'s signature."""
     return unconstrained_rqs(x, w, h, d, inverse=inverse, left=left,
                              right=right, bottom=bottom, top=top)
 
 
+def twin_vjp(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
+             top):
+    """The VJP by autograd through the twin, recomputed, with
+    `rqs_vjp_plain`'s signature: the backward the kernel replaced. The
+    checks compare with it; no flow layer calls it."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (x, w, h, d)]
+        y, ld = plain_rqs(*ins, inverse, left, right, bottom, top)
+        return torch.autograd.grad((y, ld), ins, (grad_y, grad_ld))
+
+
+def _map_vjp(xs, cw, wb, ch, hb, dl, dr, gy, gld, inverse):
+    """Reverse mode of rational_quadratic_spline's explicit formulas on one
+    bin (bijectors/rqs.py), for cotangents gy, gld of (y, log|det|).
+
+    The bin is given by its left knots (cw, ch), sizes (wb, hb) and knot
+    derivatives (dl, dr). Returns the cotangents of (xs, cw, wb, ch, hb,
+    dl, dr). csrc/rqs.cu's `map_vjp` is the same sequence of operations.
+    """
+    delta = hb / wb
+    sp = dl + dr - 2.0 * delta
+    if inverse:
+        # t is the root of the quadratic; y = t * wb + cw and
+        # log|det| = -(log(dnum) - 2 log(den))
+        dy = xs - ch
+        a = dy * sp + hb * (delta - dl)
+        bq = hb * dl - dy * sp
+        c = -delta * dy
+        sq = torch.sqrt(bq * bq - 4.0 * a * c)
+        den_r = -bq - sq
+        t = (2.0 * c) / den_r
+        g_dnum_per_gld, g_den_per_gld = -1.0, 2.0
+    else:
+        # t is theta; y = ch + num_y / den and
+        # log|det| = log(dnum) - 2 log(den)
+        t = (xs - cw) / wb
+        g_dnum_per_gld, g_den_per_gld = 1.0, -2.0
+    omt = 1.0 - t
+    t1m = t * omt
+    den = delta + sp * t1m
+    q = dr * t * t + 2.0 * delta * t1m + dl * omt * omt
+    dnum = delta * delta * q
+
+    g_dnum = g_dnum_per_gld * gld / dnum
+    g_den = g_den_per_gld * gld / den
+    g_q = g_dnum * delta * delta
+    g_delta = g_dnum * 2.0 * delta * q + g_q * 2.0 * t1m
+    g_dr = g_q * t * t
+    g_t = g_q * (2.0 * dr * t - 2.0 * dl * omt)
+    g_dl = g_q * omt * omt
+    if inverse:
+        g_t = g_t + gy * wb
+        g_wb, g_cw, g_hb = gy * t, gy, 0.0
+    else:
+        num_y = hb * (delta * t * t + dl * t1m)
+        g_numy = gy / den
+        g_den = g_den - gy * num_y / (den * den)
+        g_hb = g_numy * (delta * t * t + dl * t1m)
+        g_delta = g_delta + g_numy * hb * t * t
+        g_t = g_t + g_numy * hb * 2.0 * delta * t
+        g_dl = g_dl + g_numy * hb * t1m
+    g_delta = g_delta + g_den
+    g_sp = g_den * t1m
+    g_t1m = g_q * 2.0 * delta + g_den * sp
+    if not inverse:
+        g_t1m = g_t1m + g_numy * hb * dl
+    g_t = g_t + g_t1m * (1.0 - 2.0 * t)
+    if inverse:
+        g_c = g_t * 2.0 / den_r
+        g_denr = -g_t * t / den_r
+        g_disc = -g_denr / (2.0 * sq)
+        g_bq = -g_denr + g_disc * 2.0 * bq
+        g_a = -g_disc * 4.0 * c
+        g_c = g_c - g_disc * 4.0 * a
+        g_delta = g_delta - g_c * dy + g_a * hb
+        g_hb = g_bq * dl + g_a * (delta - dl)
+        g_dl = g_dl + g_bq * hb - g_a * hb
+        g_sp = g_sp - g_bq * dy + g_a * dy
+        g_dy = -g_c * delta - g_bq * sp + g_a * sp
+        g_xs, g_ch = g_dy, -g_dy
+    else:
+        g_xs = g_t / wb
+        g_cw = -g_t / wb
+        g_wb = -g_t * t / wb
+        g_ch = gy
+    g_dl = g_dl + g_sp
+    g_dr = g_dr + g_sp
+    g_delta = g_delta - 2.0 * g_sp
+    g_hb = g_hb + g_delta / wb
+    g_wb = g_wb - g_delta * delta / wb
+    return g_xs, g_cw, g_wb, g_ch, g_hb, g_dl, g_dr
+
+
+def _knot_logit_vjp(logits, idx, g_left, g_size, span, scale):
+    """Cotangent of the K bin logits from those of the bin's left knot and
+    size, in autograd's order of operations. Knot j = lo + span * c_j with
+    c_j the sum of the first j floored probabilities min + scale * p_i: the
+    cumsum's VJP gives probability m the sum G_m of the scaled knot
+    cotangents at j > m, and the softmax's VJP p_m (scale G_m -
+    sum_i p_i scale G_i). The pinned knots 0 and K get none."""
+    k = logits.shape[-1]
+    p = torch.softmax(logits, dim=-1)
+    zero = torch.zeros_like(g_size)
+    g_b = span * (g_left - g_size)                      # knot idx
+    g_b1 = torch.where(idx + 1 < k, span * g_size, zero)  # knot idx + 1
+    m = torch.arange(k, device=logits.device)
+    at = idx[..., None]
+    g_p = scale * (torch.where(m < at, g_b[..., None], zero[..., None])
+                   + torch.where(m < at + 1, g_b1[..., None],
+                                 zero[..., None]))
+    return p * (g_p - torch.sum(g_p * p, dim=-1, keepdim=True))
+
+
+def rqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
+                  top):
+    """The VJP of unconstrained_rqs in closed form, in plain tensor ops (no
+    autograd): returns (gx, gw, gh, gd) for cotangents grad_y, grad_ld.
+
+    The backward kernel's plain version, equal to `jax.vjp` of the JAX
+    function: x gets grad_y outside the domain and, inside, the map's
+    derivative, halved at x exactly on lo or hi (jnp.clip's
+    minimum/maximum tie); outside the domain the parameters get 0. A NaN
+    x propagates NaN into gx, gw, gh and the d entry of its bin, as the
+    JAX VJP and autograd through the twin do.
+    """
+    k = w.shape[-1]
+    lo, hi = (bottom, top) if inverse else (left, right)
+    inside = (x >= lo) & (x <= hi)
+    xs = torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    knots_w, sizes_w = _normalize_bins(w, k, DEFAULT_MIN_BIN_WIDTH, left,
+                                       right)
+    knots_h, sizes_h = _normalize_bins(h, k, DEFAULT_MIN_BIN_HEIGHT, bottom,
+                                       top)
+    idx = _search_bins(knots_h if inverse else knots_w, xs)
+    edge = torch.full_like(d[..., :1], math.log(math.expm1(
+        1.0 - DEFAULT_MIN_DERIVATIVE)))
+    raw = torch.cat([edge, d, edge], dim=-1)
+    deriv = DEFAULT_MIN_DERIVATIVE + softplus(raw)
+    zero = torch.zeros_like(x)
+    gy = torch.where(inside, grad_y, zero)
+    gld = torch.where(inside, grad_ld, zero)
+    g_xs, g_cw, g_wb, g_ch, g_hb, g_dl, g_dr = _map_vjp(
+        xs, _gather(knots_w, idx), _gather(sizes_w, idx),
+        _gather(knots_h, idx), _gather(sizes_h, idx), _gather(deriv, idx),
+        _gather(deriv[..., 1:], idx), gy, gld, inverse)
+
+    gw = _knot_logit_vjp(w, idx, g_cw, g_wb, right - left,
+                         1.0 - DEFAULT_MIN_BIN_WIDTH * k)
+    gh = _knot_logit_vjp(h, idx, g_ch, g_hb, top - bottom,
+                         1.0 - DEFAULT_MIN_BIN_HEIGHT * k)
+    # softplus' = 1 / (1 + exp(-raw)); d[j] is the raw derivative of knot
+    # j + 1, so the bin's left knot idx reads d[idx - 1], its right d[idx]
+    den = 1.0 + torch.exp(-raw)
+    g_dl = torch.where(idx >= 1, g_dl / _gather(den, idx), zero)
+    g_dr = torch.where(idx <= k - 2, g_dr / _gather(den[..., 1:], idx), zero)
+    m = torch.arange(k - 1, device=x.device)
+    gd = (torch.where(m == (idx - 1)[..., None], g_dl[..., None],
+                      torch.zeros_like(d))
+          + torch.where(m == idx[..., None], g_dr[..., None],
+                        torch.zeros_like(d)))
+    at_bound = (x == lo) | (x == hi)
+    factor = torch.where(at_bound, 0.5, 1.0).to(x.dtype)
+    gx = torch.where(inside, zero, grad_y) + torch.where(
+        inside, factor, zero) * g_xs
+    return gx, gw, gh, gd
+
+
 class _FusedRQS(torch.autograd.Function):
-    """Forward by `forward`; backward by autograd through the plain twin
-    (the JAX custom_vjp `_fused_fwd` / `_fused_bwd`)."""
+    """Forward by `forward`, backward by `backward` (the JAX custom_vjp
+    `_fused_fwd` / `_fused_bwd`, with the VJP a kernel of its own)."""
 
     @staticmethod
-    def forward(ctx, x, w, h, d, forward, inverse, bounds):
+    def forward(ctx, x, w, h, d, forward, backward, inverse, bounds):
         ctx.save_for_backward(x, w, h, d)
+        ctx.vjp = backward
         ctx.inverse = inverse
         ctx.bounds = bounds
         return forward(x, w, h, d, inverse, *bounds)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad_y, grad_ld):
-        needs = ctx.needs_input_grad[:4]
-        with torch.enable_grad():
-            ins = [t.detach().requires_grad_(need)
-                   for t, need in zip(ctx.saved_tensors, needs)]
-            y, ld = plain_rqs(*ins, ctx.inverse, *ctx.bounds)
-            wanted = [t for t, need in zip(ins, needs) if need]
-            grads = iter(torch.autograd.grad((y, ld), wanted,
-                                             (grad_y, grad_ld),
-                                             allow_unused=True))
-        return (*(next(grads) if need else None for need in needs),
-                None, None, None)
+        grads = ctx.vjp(*ctx.saved_tensors, grad_y, grad_ld, ctx.inverse,
+                        *ctx.bounds)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad[:4])),
+                None, None, None, None)
 
 
 def unconstrained_rqs_fused(x, w, h, d, inverse, left, right, bottom, top,
-                            forward=rqs_cuda):
-    """unconstrained_rqs with its forward by `forward` (the CUDA kernel)
-    and its gradient by autograd through the plain twin."""
-    return _FusedRQS.apply(x, w, h, d, forward, bool(inverse),
+                            forward=rqs_cuda, backward=rqs_vjp_cuda):
+    """unconstrained_rqs with its forward by `forward` and its gradient by
+    `backward` (by default the two CUDA kernels)."""
+    return _FusedRQS.apply(x, w, h, d, forward, backward, bool(inverse),
                            (float(left), float(right), float(bottom),
                             float(top)))

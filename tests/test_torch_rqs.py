@@ -6,9 +6,11 @@ h and d, forward and inverse, over tails, knots, the bounds themselves,
 asymmetric bounds, NaN and inf. Then the twin against the Pallas kernel
 (`unconstrained_rqs_fused`, interpret mode) in float32 at the tolerances
 tests/test_rqs_pallas.py holds that kernel to, and the port's autograd
-Function, with the twin as its forward, against autograd through the twin.
-The CUDA kernel itself is held against the twin on the card by
-chip_smoke.py.
+Function, with the twin as its forward and as its backward autograd through
+the twin or the closed-form plain VJP, against autograd through the twin.
+The CUDA kernels themselves are held against the plain versions on the card
+by chip_smoke.py; the plain VJP against JAX's is in
+tests/test_torch_rqs_vjp.py.
 """
 
 import jax
@@ -161,38 +163,45 @@ def test_twin_matches_pallas_kernel_f32(inverse):
     np.testing.assert_allclose(tld.numpy(), np.asarray(jld), **LD_TOL)
 
 
-@pytest.mark.parametrize("needs", ["xwhd", "x", "whd"])
+@pytest.mark.parametrize("needs", ["xwhd", "x", "whd", "w", "hd"])
 @pytest.mark.parametrize("inverse", [False, True])
 def test_autograd_function_matches_twin(needs, inverse):
-    """The Function's backward (autograd through the twin, recomputed)
-    equals autograd through the twin, for any subset of inputs needing
-    grad; its forward is the one it is given."""
+    """The Function's forward and backward are the ones it is given, and
+    inputs that do not need a gradient get None: with the twin as its
+    forward and, as its backward, autograd through the twin (recomputed)
+    or the closed-form plain VJP, it equals autograd through the twin for
+    each subset of inputs needing grad. The closed form rounds otherwise
+    than autograd, so it is held at RTOL, ATOL."""
     rng = np.random.default_rng(6)
     k, n = 8, 64
     b = BOUNDS["asymmetric"]
     w, h, d = params(rng, n, k)
     x, _ = inputs(rng, n, k, b, inverse, w, h)
     cy, cld = t(rng.standard_normal(n)), t(rng.standard_normal(n))
-    results = []
-    for fused in (True, False):
+
+    def grads(backward):
         ts = [t(a).requires_grad_(name in needs)
               for name, a in zip("xwhd", (x, w, h, d))]
-        if fused:
+        if backward is None:
+            y, ld = trqs.unconstrained_rqs(*ts, inverse=inverse, **b)
+        else:
             y, ld = ops_rqs.unconstrained_rqs_fused(
                 *ts, inverse, b["left"], b["right"], b["bottom"], b["top"],
-                forward=ops_rqs.plain_rqs)
-        else:
-            y, ld = trqs.unconstrained_rqs(*ts, inverse=inverse, **b)
+                forward=ops_rqs.plain_rqs, backward=backward)
         (torch.sum(cy * y * y) + torch.sum(cld * ld)).backward()
-        results.append((y.detach(), ld.detach(),
-                        [a.grad for a in ts]))
-    (fy, fld, fg), (py, pld, pg) = results
-    assert torch.equal(fy, py) and torch.equal(fld, pld)
-    for name, a, g in zip("xwhd", fg, pg):
-        if name in needs:
-            torch.testing.assert_close(a, g, rtol=1e-12, atol=1e-14)
-        else:
-            assert a is None and g is None
+        return y.detach(), ld.detach(), [a.grad for a in ts]
+
+    py, pld, pg = grads(None)
+    for backward, tol in ((ops_rqs.twin_vjp, dict(rtol=1e-12, atol=1e-14)),
+                          (ops_rqs.rqs_vjp_plain, dict(rtol=RTOL,
+                                                       atol=ATOL))):
+        fy, fld, fg = grads(backward)
+        assert torch.equal(fy, py) and torch.equal(fld, pld)
+        for name, a, g in zip("xwhd", fg, pg):
+            if name in needs:
+                torch.testing.assert_close(a, g, **tol)
+            else:
+                assert a is None and g is None
 
 
 def test_apply_rqs_on_cpu_is_the_twin():

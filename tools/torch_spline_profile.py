@@ -10,11 +10,12 @@ for:
               steps: device busy time, the device's idle share, launches,
               the top kernels;
   * sample  : the same for NeuTra-HMC transitions at 4096 chains, L = 8;
-  * recompute: the RQS backward's share. The backward of the kernel's
-              autograd Function recomputes the plain twin and differentiates
-              it; this times that recompute alone on the inputs one
-              gradient evaluation gives the kernel, against the whole
-              gradient evaluation, in device time and in wall time.
+  * backward: the RQS backward's share. On the card the kernels' autograd
+              Function runs the VJP kernel (csrc/rqs.cu); this times, on
+              the inputs one gradient evaluation gives the RQS, that kernel
+              alone and the float32 autograd recompute of the plain twin
+              that it replaced, against the whole gradient evaluation, in
+              device time and in wall time.
 
     python tools/torch_spline_profile.py [--steps 3] [--transitions 2]
 
@@ -138,7 +139,7 @@ def main():
     out["wall_ms_per_call"] = wall_ms(transition, 2 * args.transitions)
     print("sample: " + json.dumps(out), flush=True)
 
-    # ------------------------------------------- the backward's recompute
+    # ------------------------------------------------- the RQS backward
     captured = []
     fused = ops_rqs.unconstrained_rqs_fused
 
@@ -154,27 +155,29 @@ def main():
     finally:
         ops_rqs.unconstrained_rqs_fused = fused
 
-    def recompute():
-        for x, w, h, d, inverse, bounds in captured:
-            with torch.enable_grad():
-                ins = [t.detach().requires_grad_(True)
-                       for t in (x, w, h, d)]
-                y, ld = ops_rqs.plain_rqs(*ins, inverse, *bounds)
-                torch.autograd.grad((y, ld), ins,
-                                    (torch.ones_like(y), torch.ones_like(ld)))
+    def backward(vjp):
+        """One gradient evaluation's RQS backwards by `vjp`."""
+        def run():
+            for x, w, h, d, inverse, bounds in captured:
+                one = torch.ones_like(x)
+                vjp(x, w, h, d, one, one, inverse, *bounds)
+        return run
 
-    whole = profile(lambda: lp_grad(z), 3, "gradient_evaluation")
-    whole["wall_ms_per_call"] = wall_ms(lambda: lp_grad(z), 5)
-    part = profile(recompute, 3, "twin_recompute")
-    part["wall_ms_per_call"] = wall_ms(recompute, 5)
-    print("recompute: " + json.dumps({
-        "rqs_calls_per_gradient_evaluation": len(captured),
-        "rows": [int(c[0].numel()) for c in captured],
-        "gradient_evaluation": whole, "twin_recompute": part,
-        "device_share": part["device_busy_ms_per_call"]
-        / whole["device_busy_ms_per_call"],
-        "wall_share": part["wall_ms_per_call"] / whole["wall_ms_per_call"],
-    }), flush=True)
+    out = {"rqs_calls_per_gradient_evaluation": len(captured),
+           "rows": [int(c[0].numel()) for c in captured]}
+    for label, fn in (("gradient_evaluation", lambda: lp_grad(z)),
+                      ("vjp_kernel", backward(ops_rqs.rqs_vjp_cuda)),
+                      ("twin_recompute", backward(ops_rqs.twin_vjp))):
+        out[label] = profile(fn, 3, label)
+        out[label]["wall_ms_per_call"] = wall_ms(fn, 5)
+    whole = out["gradient_evaluation"]
+    for label in ("vjp_kernel", "twin_recompute"):
+        out[label]["device_share_of_gradient_evaluation"] = (
+            out[label]["device_busy_ms_per_call"]
+            / whole["device_busy_ms_per_call"])
+        out[label]["wall_share_of_gradient_evaluation"] = (
+            out[label]["wall_ms_per_call"] / whole["wall_ms_per_call"])
+    print("backward: " + json.dumps(out), flush=True)
     return 0
 
 
