@@ -12,6 +12,10 @@ Phases, each printing its own line; any failure exits non-zero:
   3. kernels: each kernel against its plain PyTorch version on the card, at
               the main paths' shapes and beyond, with NaN/inf rows; times
               with CUDA events beside the plain version and the byte bound.
+              The accept kernel is held in both its forms: the transition's
+              fused tail (last half-kick, both kinetic energies, accept,
+              select), in place and into fresh outputs, at about 0.47 and
+              0.81 accepts, and the unfused accept/select of the JAX API.
               The RQS backward kernel is held against the closed-form plain
               VJP in float64, beside the float32 autograd recompute of the
               twin that it replaced (its error and time are printed too);
@@ -63,6 +67,9 @@ TRAIN_BATCH = 4096
 FULL_TRAIN_STEPS, FULL_DRAWS = 15000, 1024  # bench.py's depth
 REDUCED_TRAIN_STEPS, REDUCED_DRAWS = 5000, 256
 KERNEL_SHAPES = [(8192, 64), (4096, 96), (1056, 64), (300, 2048), (96, 6)]
+# accept kernel, checked too: rows wider than a block's registers (float
+# loads, 1030 > 256 threads x 4 units), which stream their tail
+WIDE_SHAPES = [(64, 1030)]
 
 # The bench's spline line (bench.py spline_flow_lines), at its depth.
 SP_SIZE, SP_SPACE, SP_BINS, SP_HIDDEN, SP_TAIL = 32, 3, 32, 354, 6.0
@@ -103,18 +110,24 @@ def device_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_time_ms(fn, reps=50, flush=None):
+def cuda_time_ms(fn, reps=50, flush=None, prepare=None):
     """Median per-call device time (CUDA events around each call).
 
     Before each call the device spins for about half a millisecond, so the
     host has queued the whole call before its start event fires and the
     time is the device's, not the host's launch overhead. `flush` (a large
     buffer) is overwritten before each call, outside the timed region, so
-    the call finds its inputs in HBM and not in L2."""
+    the call finds its inputs in HBM and not in L2. `prepare` runs before
+    each call (and before the flush), outside the timed region: it restores
+    what an in-place call changed."""
     for _ in range(5):
+        if prepare is not None:
+            prepare()
         fn()
     pairs = []
     for _ in range(reps):
+        if prepare is not None:
+            prepare()
         if flush is not None:
             flush.zero_()
         torch.cuda._sleep(1_000_000)
@@ -166,7 +179,47 @@ def accept_bound(args, accepted):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def compare_accept(ker, ref, scale, log_u, label):
+    """Kernel outputs against the plain version's. The kernel sums the
+    kinetic energies in another order than torch.sum, so dE may differ by a
+    few f32 ulps of the terms it is made of (`scale`, per row): the
+    tolerance is relative to them. A row whose accept test lies within that
+    of log_u may flip; it is excluded from the exact checks and counted.
+    Returns (max_abs_err, rows excluded, tol)."""
+    pos_r, lp_r, g_r, ap_r, acc_r, de_r = ref
+    pos_k, lp_k, g_k, ap_k, acc_k, de_k = ker
+    tol = 1e-5 * torch.clamp(scale.nan_to_num(0.0, 0.0, 0.0), min=1.0)
+    log_acc = torch.clamp(de_r, max=0.0)
+    near = (log_u - log_acc).abs() < tol
+    keep = ~near
+    exact = dict(pos=(pos_k, pos_r), g=(g_k, g_r), lp=(lp_k, lp_r),
+                 accepted=(acc_k, acc_r))
+    for name, (a, b) in exact.items():
+        torch.testing.assert_close(a[keep], b[keep], rtol=0, atol=0,
+                                   equal_nan=True, msg=f"{name} {label}")
+    finite = torch.isfinite(de_r)
+    if not torch.equal(finite, torch.isfinite(de_k)):
+        raise AssertionError(f"d_energy finiteness differs {label}")
+    de_err = (de_k - de_r).abs()[finite]
+    if bool((de_err > tol[finite]).any()):
+        raise AssertionError(f"d_energy off by {float(de_err.max())} "
+                             f"{label}")
+    ap_err = (ap_k - ap_r).abs()
+    if bool((ap_err > 1e-5 + tol * ap_r).any()):
+        raise AssertionError(f"accept_prob off by {float(ap_err.max())} "
+                             f"{label}")
+    n_acc = int(acc_r.sum())
+    if not 0 < n_acc < acc_r.numel():
+        raise AssertionError(f"inputs gave no mixed accepts {label}")
+    max_err = max(float(de_err.max()), float(ap_err.max()),
+                  float((pos_k - pos_r)[keep].abs().nan_to_num(0.0).max()),
+                  float((g_k - g_r)[keep].abs().nan_to_num(0.0).max()))
+    return max_err, int(near.sum())
+
+
 def check_accept_select(n, d, gen, flush):
+    """The kernel's unfused form (accept_select) against accept_select_ref
+    at accept_inputs."""
     from normalizingflow_tpu_torch.ops.hmc import (
         accept_select,
         accept_select_ref,
@@ -177,52 +230,150 @@ def check_accept_select(n, d, gen, flush):
     ref = accept_select_ref(*args)
     ker = accept_select(*args)  # CUDA tensors: the kernel
     torch.cuda.synchronize()
-    pos_r, lp_r, g_r, ap_r, acc_r, de_r = ref
-    pos_k, lp_k, g_k, ap_k, acc_k, de_k = ker
-
-    # The kernel sums the kinetic energy in another order than torch.sum,
-    # so dE may differ by a few f32 ulps of the terms it is made of: the
-    # tolerance is relative to |h_old| + |lp_new| + kin. A row whose
-    # accept test lies within that of log_u may flip; it is excluded and
-    # counted.
     kin = 0.5 * torch.sum(inv_m * p * p, dim=1)
-    scale = (h_old.abs() + lp_new.abs() + kin).nan_to_num(0.0, 0.0, 0.0)
-    tol = 1e-5 * torch.clamp(scale, min=1.0)
-    log_acc = torch.clamp(de_r, max=0.0)
-    near = (log_u - log_acc).abs() < tol
-    keep = ~near
-    exact = dict(pos=(pos_k, pos_r), g=(g_k, g_r), lp=(lp_k, lp_r),
-                 accepted=(acc_k, acc_r))
-    for name, (a, b) in exact.items():
-        torch.testing.assert_close(a[keep], b[keep], rtol=0, atol=0,
-                                   equal_nan=True, msg=f"{name} ({n},{d})")
-    finite = torch.isfinite(de_r)
-    if not torch.equal(finite, torch.isfinite(de_k)):
-        raise AssertionError(f"d_energy finiteness differs ({n},{d})")
-    de_err = (de_k - de_r).abs()[finite]
-    if bool((de_err > tol[finite]).any()):
-        raise AssertionError(f"d_energy off by {float(de_err.max())}")
-    ap_err = (ap_k - ap_r).abs()
-    if bool((ap_err > 1e-5 + tol * ap_r).any()):
-        raise AssertionError(f"accept_prob off by {float(ap_err.max())}")
-    max_err = max(float(de_err.max()), float(ap_err.max()),
-                  float((pos_k - pos_r)[keep].abs().nan_to_num(0.0).max()),
-                  float((g_k - g_r)[keep].abs().nan_to_num(0.0).max()))
-    n_acc = int(acc_r.sum())
-    if not 0 < n_acc < n:
-        raise AssertionError(f"inputs gave no mixed accepts ({n},{d})")
+    max_err, n_near = compare_accept(
+        ker, ref, h_old.abs() + lp_new.abs() + kin, log_u,
+        f"unfused ({n},{d})")
 
     ms = cuda_time_ms(lambda: accept_select(*args), flush=flush)
-    ms_warm = cuda_time_ms(lambda: accept_select(*args))
     plain_ms = cuda_time_ms(lambda: accept_select_ref(*args), flush=flush)
-    bound_ms, bound_by = accept_bound(args, acc_r)
-    log(f"kernels: accept_select ({n},{d}) f32 ok: accepted {n_acc}/{n}, "
-        f"excluded near-threshold {int(near.sum())}, max_abs_err {max_err:.3g}"
-        f", ms {ms:.5f} (L2 warm {ms_warm:.5f}), plain_ms {plain_ms:.5f}, "
-        f"bound_ms {bound_ms:.5f} ({bound_by}), "
-        f"share of bound {bound_ms / ms:.3f}")
+    bound_ms, bound_by = accept_bound(args, ref[4])
+    log(f"kernels: accept_select unfused ({n},{d}) f32 ok: accepted "
+        f"{int(ref[4].sum())}/{n}, excluded near-threshold {n_near}, "
+        f"max_abs_err {max_err:.3g}, ms {ms:.5f}, plain_ms {plain_ms:.5f}, "
+        f"bound_ms {bound_ms:.5f} ({bound_by}), share of bound "
+        f"{bound_ms / ms:.3f}")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+# accept settings of the fused checks: dE ~ N(shift, 1) around the
+# proposal, and every `every`-th row of each kind of divergence
+ACCEPT_MIXES = {"half": dict(shift=0.0, every=7),
+                "main": dict(shift=0.3, every=101)}
+
+
+def fused_inputs(n, d, gen, shift, every):
+    """Random inputs of accept_select_fused: (q, p_half, eps (n, 1), g_new,
+    momentum0, state_pos, state_grad, state_lp, lp_new, log_u, inv_m).
+
+    state_lp is set so that h_old - h_new ~ N(shift, 1): about 0.47 of the
+    rows accept with shift 0 and every 7, about 0.81 with shift 0.3 and
+    every 101. Rows 0::every have a NaN lp_new, rows 1::every a NaN q and
+    an inf p_half, rows 2::every a NaN state_lp (all rejected; accept_prob
+    0 where h_new is not finite), rows 3::every an inf momentum (h_old =
+    inf: accepted)."""
+    kw = dict(device="cuda", dtype=torch.float32, generator=gen)
+    q, p_half, g_new, mom, pos, grad = (torch.randn(n, d, **kw)
+                                        for _ in range(6))
+    inv_m = torch.exp(0.3 * torch.randn(d, **kw))
+    mom = torch.sqrt(1.0 / inv_m) * mom
+    eps = 0.1 * (1.0 + 0.2 * (2.0 * torch.rand(n, 1, **kw) - 1.0))
+    lp_new = torch.randn(n, **kw)
+    p = p_half + 0.5 * eps * g_new
+    h_new = -lp_new.double() + 0.5 * torch.sum(
+        inv_m.double() * p.double() ** 2, dim=1)
+    kin_old = 0.5 * torch.sum(inv_m.double() * mom.double() ** 2, dim=1)
+    h_old = h_new + shift + torch.randn(n, **kw).double()
+    state_lp = (kin_old - h_old).float()
+    log_u = torch.log(torch.rand(n, **kw))
+    lp_new[0::every] = float("nan")
+    q[1::every] = float("nan")
+    p_half[1::every, 0] = float("inf")
+    state_lp[2::every] = float("nan")
+    mom[3::every, 0] = float("inf")
+    return q, p_half, eps, g_new, mom, pos, grad, state_lp, lp_new, log_u, \
+        inv_m
+
+
+def fused_bound(args, accepted, inplace):
+    """Least time of accept_select_fused on this data: momentum0, p_half
+    and g_new rows, q rows of accepted chains, four scalars a row and
+    inv_mass read once; pos and grad rows and lp of accepted chains, and
+    accept_prob, accepted and dE written once. Fresh outputs add the
+    rejected chains' old rows, read and written, and their lp."""
+    n, d = args[0].shape
+    acc = int(accepted.sum())
+    rej = n - acc
+    read = 4 * (3 * n * d + acc * d + 4 * n + d)
+    write = 4 * (2 * acc * d + acc + 2 * n) + n
+    if not inplace:
+        read += 4 * 2 * rej * d
+        write += 4 * (2 * rej * d + rej)
+    ops = 8 * n * d + 20 * n
+    t_bytes = (read + write) / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_accept_fused(n, d, mix, gen, flush):
+    """The fused kernel, in place and into fresh outputs, against
+    accept_select_fused_ref; rows it rejects in place must be left as they
+    were. Timed in place (the main path's form), beside the fresh form, the
+    plain version and the unfused path (the half-kick and h_old by torch,
+    then the unfused kernel)."""
+    from normalizingflow_tpu_torch.ops.hmc import (
+        accept_select,
+        accept_select_fused,
+        accept_select_fused_ref,
+    )
+
+    args = fused_inputs(n, d, gen, **ACCEPT_MIXES[mix])
+    q, p_half, eps, g_new, mom, pos, grad, state_lp, lp_new, log_u, inv_m = \
+        args
+    label = f"fused ({n},{d}) {mix}"
+    ref = accept_select_fused_ref(*args)
+    p = p_half + 0.5 * eps * g_new
+    scale = (state_lp.abs() + lp_new.abs()
+             + 0.5 * torch.sum(inv_m * (p * p + mom * mom), dim=1))
+
+    fresh = accept_select_fused(*args)  # CUDA tensors: the kernel
+    work = [t.clone() for t in (pos, grad, state_lp)]
+    ker = accept_select_fused(*args[:5], *work, *args[8:], inplace=True)
+    torch.cuda.synchronize()
+    if not all(a is b for a, b in zip((ker[0], ker[2], ker[1]), work)):
+        raise AssertionError(f"in place did not return the state {label}")
+    err_fresh, near = compare_accept(fresh, ref, scale, log_u,
+                                     label + " fresh")
+    err_inplace, _ = compare_accept(ker, ref, scale, log_u,
+                                    label + " in place")
+    rejected = ~ker[4]
+    for now, old in zip(work, (pos, grad, state_lp)):
+        torch.testing.assert_close(now[rejected], old[rejected], rtol=0,
+                                   atol=0, equal_nan=True,
+                                   msg=f"a rejected row changed {label}")
+
+    def restore():
+        for w, t in zip(work, (pos, grad, state_lp)):
+            w.copy_(t)
+
+    def in_place():
+        accept_select_fused(*args[:5], *work, *args[8:], inplace=True)
+
+    def unfused_path():
+        h_old = -state_lp + 0.5 * torch.sum(inv_m * mom * mom, dim=-1)
+        accept_select(q, p_half + 0.5 * eps * g_new, g_new, pos, grad,
+                      lp_new, state_lp, h_old, log_u, inv_m)
+
+    ms = cuda_time_ms(in_place, flush=flush, prepare=restore)
+    ms_warm = cuda_time_ms(in_place, prepare=restore)
+    fresh_ms = cuda_time_ms(lambda: accept_select_fused(*args), flush=flush)
+    plain_ms = cuda_time_ms(lambda: accept_select_fused_ref(*args),
+                            flush=flush)
+    unfused_ms = cuda_time_ms(unfused_path, flush=flush)
+    bound_ms, bound_by = fused_bound(args, ref[4], inplace=True)
+    fresh_bound, _ = fused_bound(args, ref[4], inplace=False)
+    max_err = max(err_fresh, err_inplace)
+    log(f"kernels: accept_select fused ({n},{d}) {mix} f32 ok: accepted "
+        f"{int(ref[4].sum())}/{n}, excluded near-threshold {near}, "
+        f"max_abs_err {max_err:.3g}; in place ms {ms:.5f} (L2 warm "
+        f"{ms_warm:.5f}), bound_ms {bound_ms:.5f} ({bound_by}), share of "
+        f"bound {bound_ms / ms:.3f}; fresh ms {fresh_ms:.5f}, bound_ms "
+        f"{fresh_bound:.5f}, share {fresh_bound / fresh_ms:.3f}; plain_ms "
+        f"{plain_ms:.5f}; unfused path ms {unfused_ms:.5f}")
     return dict(max_abs_err=max_err, ms=ms, ms_warm=ms_warm,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+                fresh_ms=fresh_ms, plain_ms=plain_ms, unfused_ms=unfused_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 # ------------------------------------------------------------- main path
@@ -249,7 +400,10 @@ def main_path(train_steps, draws, seed, device="cuda"):
         tail_ess,
     )
     from normalizingflow_tpu_torch.mcmc import neutra_hmc, padded_length
-    from normalizingflow_tpu_torch.ops.hmc import accept_select
+    from normalizingflow_tpu_torch.ops.hmc import (
+        accept_select,
+        accept_select_fused,
+    )
     from normalizingflow_tpu_torch.targets import NealsFunnel
     from normalizingflow_tpu_torch.train.loop import train
 
@@ -258,6 +412,7 @@ def main_path(train_steps, draws, seed, device="cuda"):
     target = NealsFunnel(DIM)
 
     accept_select.launches = 0
+    accept_select_fused.launches = 0
     t0 = time.perf_counter()
     final_kl = train(flow, target, train_steps, TRAIN_BATCH, gen,
                      device=device)
@@ -271,7 +426,8 @@ def main_path(train_steps, draws, seed, device="cuda"):
                      step_size=0.5, num_leapfrog=LEAPFROG, device=device)
     end.record()
     torch.cuda.synchronize()
-    launches = accept_select.launches
+    launches = accept_select_fused.launches
+    unfused = accept_select.launches
     sample_s = start.elapsed_time(end) / 1e3
     transitions = padded_length(WARMUP) + padded_length(draws)
 
@@ -288,6 +444,7 @@ def main_path(train_steps, draws, seed, device="cuda"):
         train_steps=train_steps, train_s=train_s, final_reverse_kl=final_kl,
         chains=CHAINS, warmup=WARMUP, draws=draws, leapfrog=LEAPFROG,
         transitions=transitions, accept_launches=launches,
+        accept_unfused_launches=unfused,
         accept=accept, step_size=float(res.step_size),
         v_mean=float(v.mean()), v_var=float(v.var(correction=0)),
         ess_min_bulk_x=float(bulk_x.min()),
@@ -297,9 +454,10 @@ def main_path(train_steps, draws, seed, device="cuda"):
         ms_per_transition=sample_s * 1e3 / transitions)
     log("main: " + json.dumps(stats))
 
-    if launches != transitions:
-        raise AssertionError(f"accept_select launched {launches} times for "
-                             f"{transitions} transitions")
+    if launches != transitions or unfused != 0:
+        raise AssertionError(f"the fused accept kernel launched {launches} "
+                             f"times for {transitions} transitions, the "
+                             f"unfused form {unfused} times")
     if not bool(torch.isfinite(xs).all()) or not all(
             math.isfinite(x) for x in (final_kl, ess_min, ess_tail, accept)):
         raise AssertionError("non-finite output")
@@ -611,7 +769,10 @@ def spline_line(seed, device="cuda"):
         push_to_data,
     )
     from normalizingflow_tpu_torch.mcmc.neutra import PUSH_CHUNK
-    from normalizingflow_tpu_torch.ops.hmc import accept_select
+    from normalizingflow_tpu_torch.ops.hmc import (
+        accept_select,
+        accept_select_fused,
+    )
     from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
     from normalizingflow_tpu_torch.targets import NealsFunnel
     from normalizingflow_tpu_torch.train.loop import train
@@ -626,6 +787,7 @@ def spline_line(seed, device="cuda"):
             flow, target, z=flow.prior.sample(SP_BATCH, generator=gen)))
 
     accept_select.launches = 0
+    accept_select_fused.launches = 0
     rqs_cuda.launches = 0
     rqs_vjp_cuda.launches = 0
     t0 = time.perf_counter()
@@ -647,7 +809,8 @@ def spline_line(seed, device="cuda"):
     torch.cuda.synchronize()
     rqs_launches = rqs_cuda.launches
     vjp_launches = rqs_vjp_cuda.launches
-    acc_launches = accept_select.launches
+    acc_launches = accept_select_fused.launches
+    acc_unfused = accept_select.launches
     sample_s = start.elapsed_time(end) / 1e3
     # the flow's own push-forward, where the chains start
     v_flow = push_to_data(flow, flow.prior.sample(
@@ -681,6 +844,7 @@ def spline_line(seed, device="cuda"):
         rqs_launches_expected=expected, rqs_vjp_launches=vjp_launches,
         rqs_vjp_launches_train=train_vjp_launches,
         rqs_vjp_launches_expected=expected_vjp, accept_launches=acc_launches,
+        accept_unfused_launches=acc_unfused,
         accept=accept, step_size=float(res.step_size),
         v_mean=v_mean, v_var=v_var,
         v_in_band=abs(v_mean) < 0.5 and abs(v_var - 9.0) < 3.0,
@@ -699,9 +863,11 @@ def spline_line(seed, device="cuda"):
     if vjp_launches != expected_vjp:
         raise AssertionError(f"rqs_vjp launched {vjp_launches} times, the "
                              f"code implies {expected_vjp}")
-    if acc_launches != transitions:
-        raise AssertionError(f"accept_select launched {acc_launches} times "
-                             f"for {transitions} transitions")
+    if acc_launches != transitions or acc_unfused != 0:
+        raise AssertionError(f"the fused accept kernel launched "
+                             f"{acc_launches} times for {transitions} "
+                             f"transitions, the unfused form {acc_unfused} "
+                             f"times")
     if not bool(torch.isfinite(xs).all()) or not all(
             math.isfinite(x) for x in (final_kl, ess_min, ess_tail, accept)):
         raise AssertionError("spline: non-finite output")
@@ -848,8 +1014,11 @@ def main(argv=None):
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
-    results = {shape: check_accept_select(*shape, gen, flush)
-               for shape in KERNEL_SHAPES}
+    unfused = {shape: check_accept_select(*shape, gen, flush)
+               for shape in KERNEL_SHAPES + WIDE_SHAPES}
+    fused = {(*shape, mix): check_accept_fused(*shape, mix, gen, flush)
+             for shape in KERNEL_SHAPES + WIDE_SHAPES
+             for mix in ACCEPT_MIXES}
     rqs_both = {
         (n, k, inverse, bname): check_rqs(n, k, bname, inverse, gen, flush)
         for n in RQS_ROWS for k in RQS_BINS for inverse in (True, False)
@@ -881,8 +1050,9 @@ def main(argv=None):
               "normalizingflow_tpu_torch/csrc/accept_select.cu",
               "normalizingflow_tpu/ops/hmc_pallas.py:56",
               dict(funnel=funnel, spline=spline["accept_select"]),
-              results[(CHAINS, DIM)],
-              [r["max_abs_err"] for r in results.values()]),
+              fused[(CHAINS, DIM, "main")],
+              [r["max_abs_err"] for r in (*fused.values(),
+                                          *unfused.values())]),
         entry("rqs", "normalizingflow_tpu_torch/csrc/rqs.cu",
               "normalizingflow_tpu/ops/rqs_pallas.py:45",
               dict(spline=spline["rqs"], spline_ar=spline_ar["rqs"]),

@@ -4,9 +4,10 @@ Twin of normalizingflow_tpu/mcmc/hmc.py in its chain-batched form
 (`hmc_kernel_chainbatched`, `run_hmc(batched_target=True)`): the target
 maps the whole (chains, dim) batch to (chains,) log-probs, each leapfrog
 step is one autograd gradient of the summed log-prob, and the Metropolis
-accept + state select goes through ops.hmc.accept_select (the CUDA kernel
-on the card). A diagonal mass matrix M gives momenta ~ N(0, M) and kinetic
-energy p^T M^-1 p / 2; acceptance is exp(min(0, dH)).
+accept + state select, with the last half-kick and both kinetic energies,
+goes through ops.hmc.accept_select_fused (one CUDA kernel on the card). A
+diagonal mass matrix M gives momenta ~ N(0, M) and kinetic energy
+p^T M^-1 p / 2; acceptance is exp(min(0, dH)).
 
 Randomness. Each transition takes three raw draws per chain: a jitter
 uniform in [-1, 1) of shape (chains, 1), a standard-normal (chains, dim)
@@ -27,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..device import check_on, entry_device
-from ..ops.hmc import accept_select
+from ..ops.hmc import accept_select_fused
 from .adaptation import (
     da_init,
     da_step_size,
@@ -64,14 +65,16 @@ def batched_lp_grad(logprob_batch_fn):
     """(chains, dim) -> ((chains,), (chains, dim)) value and gradient.
 
     Per-chain log-probs decouple under a sum, so the gradient of the sum
-    is each chain's own gradient, from one batched evaluation."""
+    is each chain's own gradient, from one batched evaluation. The gradient
+    is made contiguous (autograd may hand back an expanded view), as the
+    accept kernel and an in-place state need."""
 
     def lp_grad(x):
         with torch.enable_grad():
             x = x.detach().requires_grad_(True)
             lps = logprob_batch_fn(x)
             (g,) = torch.autograd.grad(lps.sum(), x)
-        return lps.detach(), g
+        return lps.detach(), g.contiguous()
 
     return lp_grad
 
@@ -81,6 +84,24 @@ def hmc_init(lp_grad, position):
     return HMCState(position, lp, grad)
 
 
+def _leapfrog_to_last_kick(lp_grad, position, momentum, grad, step_size,
+                           num_steps, inv_mass_diag):
+    """`leapfrog` up to, not including, its last half-kick: returns (q,
+    p_half, lp, g), where the trajectory's momentum is p_half + 0.5 *
+    step_size * g. Every other operation, and its order, is leapfrog's."""
+    if num_steps < 1:
+        raise ValueError("leapfrog needs num_steps >= 1")
+    q, p, g = position, momentum, grad
+    lp = None
+    for i in range(num_steps):
+        if i:
+            p = p + 0.5 * step_size * g  # the previous step's closing kick
+        p = p + 0.5 * step_size * g
+        q = q + step_size * (inv_mass_diag * p)
+        lp, g = lp_grad(q)
+    return q, p, lp, g
+
+
 def leapfrog(lp_grad, position, momentum, grad, step_size, num_steps,
              inv_mass_diag):
     """Kick-drift-kick velocity Verlet with the gradient of log pi.
@@ -88,16 +109,9 @@ def leapfrog(lp_grad, position, momentum, grad, step_size, num_steps,
     The log-prob rides along with the gradient, so an L-step trajectory
     costs exactly L gradient evaluations. Requires num_steps >= 1.
     """
-    if num_steps < 1:
-        raise ValueError("leapfrog needs num_steps >= 1")
-    q, p, g = position, momentum, grad
-    lp = None
-    for _ in range(num_steps):
-        p = p + 0.5 * step_size * g
-        q = q + step_size * (inv_mass_diag * p)
-        lp, g = lp_grad(q)
-        p = p + 0.5 * step_size * g
-    return q, p, lp, g
+    q, p, lp, g = _leapfrog_to_last_kick(lp_grad, position, momentum, grad,
+                                         step_size, num_steps, inv_mass_diag)
+    return q, p + 0.5 * step_size * g, lp, g
 
 
 def transition_draws(generator, chains, dim, dtype, device):
@@ -111,25 +125,27 @@ def transition_draws(generator, chains, dim, dtype, device):
 
 
 def hmc_transition(lp_grad, state, draws, step_size, num_leapfrog,
-                   inv_mass_diag, step_jitter=0.2):
+                   inv_mass_diag, step_jitter=0.2, inplace=False):
     """One HMC transition of the whole chain batch from the raw `draws`.
 
     Each chain's step size is step_size * (1 + step_jitter * u) for its own
     u; the jitter breaks the periodic orbits fixed-length HMC falls into on
-    near-harmonic targets.
+    near-harmonic targets. The leapfrog stops before its last half-kick:
+    `accept_select_fused` completes it, takes both Hamiltonians and selects,
+    in one kernel on the card. With `inplace` the new state is written into
+    `state`'s own tensors (only accepted chains change), which the caller
+    must own; else `state` is left as it was.
     """
     u_jitter, normal, u_accept = draws
     eps = step_size * (1.0 + step_jitter * u_jitter)
     momentum = torch.sqrt(1.0 / inv_mass_diag) * normal
     log_u = torch.log(u_accept)
-    q, p, lp_new, g_new = leapfrog(
+    q, p_half, lp_new, g_new = _leapfrog_to_last_kick(
         lp_grad, state.position, momentum, state.grad, eps, num_leapfrog,
         inv_mass_diag)
-    h_old = -state.log_prob + 0.5 * torch.sum(
-        inv_mass_diag * momentum * momentum, dim=-1)
-    pos, lp, g, accept_prob, accepted, d_energy = accept_select(
-        q, p, g_new, state.position, state.grad, lp_new, state.log_prob,
-        h_old, log_u, inv_mass_diag)
+    pos, lp, g, accept_prob, accepted, d_energy = accept_select_fused(
+        q, p_half, eps, g_new, momentum, state.position, state.grad,
+        state.log_prob, lp_new, log_u, inv_mass_diag, inplace=inplace)
     return HMCState(pos, lp, g), HMCInfo(accept_prob, accepted, d_energy)
 
 
@@ -168,11 +184,14 @@ def run_hmc(generator, logprob_fn, init_position, num_samples,
             return next(draws)
 
     lp_grad = batched_lp_grad(logprob_fn)
-    state = hmc_init(lp_grad, init_position)
+    # The run owns its state: every transition updates it in place.
+    state = hmc_init(lp_grad, init_position.clone(
+        memory_format=torch.contiguous_format))
 
     def step(state, eps, inv_mass):
         return hmc_transition(lp_grad, state, next_draws(), eps,
-                              num_leapfrog, inv_mass, step_jitter)
+                              num_leapfrog, inv_mass, step_jitter,
+                              inplace=True)
 
     # ------------------------------------------------------------- warmup
     if num_warmup > 0:

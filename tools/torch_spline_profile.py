@@ -133,7 +133,7 @@ def main():
         draws = hmc.transition_draws(gen, SP_CHAINS, SP_DIM, torch.float32,
                                      "cuda")
         state, _ = hmc.hmc_transition(lp_grad, state, draws, eps, LEAPFROG,
-                                      inv_mass)
+                                      inv_mass, inplace=True)
 
     out = profile(transition, args.transitions, "sample")
     out["wall_ms_per_call"] = wall_ms(transition, 2 * args.transitions)

@@ -4,9 +4,12 @@ At the bench's funnel shape (RealNVP dim 64, hidden 128, 2 layers, 8192
 chains, L=8, f32; random flow weights from a seed -- a transition's cost
 does not depend on training), this prints:
 
-  * an end-to-end A/B of the accept/select step: ms per transition with
-    the CUDA kernel and with its plain PyTorch version, in alternating
-    pairs (kernel, plain, plain, kernel, ...), CUDA-event timed;
+  * an end-to-end A/B of the transition's tail (last half-kick, both
+    kinetic energies, accept, select: ops.hmc.accept_select_fused): ms per
+    transition with the CUDA kernel and with its plain PyTorch version, in
+    alternating pairs (kernel, plain, plain, kernel, ...), CUDA-event
+    timed, each arm on its own copy of the state, in place as run_hmc
+    runs it;
   * a torch.profiler breakdown of a few transitions: device time by
     kernel, and the device's busy share of the wall time.
 
@@ -34,8 +37,8 @@ from normalizingflow_tpu_torch.mcmc.neutra import (  # noqa: E402
     pullback_logprob_batched,
 )
 from normalizingflow_tpu_torch.ops.hmc import (  # noqa: E402
-    accept_select,
-    accept_select_ref,
+    accept_select_fused,
+    accept_select_fused_ref,
 )
 from normalizingflow_tpu_torch.targets import NealsFunnel  # noqa: E402
 
@@ -55,38 +58,39 @@ def main():
         p.requires_grad_(False)
     lp_grad = hmc.batched_lp_grad(
         pullback_logprob_batched(flow, NealsFunnel(DIM)))
-    state = hmc.hmc_init(lp_grad, flow.prior.sample(CHAINS, generator=gen))
+    start = hmc.hmc_init(lp_grad, flow.prior.sample(CHAINS, generator=gen))
     inv_mass = torch.ones(DIM, device="cuda")
     step = torch.tensor(0.3, device="cuda")
+    states = {arm: hmc.HMCState(*(t.clone() for t in start))
+              for arm in ("kernel", "plain")}
 
-    def run(n):
-        nonlocal state
+    def run(n, arm="kernel"):
         for _ in range(n):
             draws = hmc.transition_draws(gen, CHAINS, DIM, torch.float32,
                                          "cuda")
-            state, _ = hmc.hmc_transition(lp_grad, state, draws, step,
-                                          LEAPFROG, inv_mass)
+            hmc.hmc_transition(lp_grad, states[arm], draws, step, LEAPFROG,
+                               inv_mass, inplace=True)
 
-    def ms_per_transition(select):
-        hmc.accept_select = select
+    def ms_per_transition(arm):
+        hmc.accept_select_fused = (accept_select_fused if arm == "kernel"
+                                   else accept_select_fused_ref)
         try:
-            run(1)
+            run(1, arm)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
-            run(args.transitions)
+            run(args.transitions, arm)
             e.record()
             torch.cuda.synchronize()
         finally:
-            hmc.accept_select = accept_select
+            hmc.accept_select_fused = accept_select_fused
         return s.elapsed_time(e) / args.transitions
 
     arms = {"kernel": [], "plain": []}
     for i in range(args.pairs):
         order = ("kernel", "plain") if i % 2 == 0 else ("plain", "kernel")
         for arm in order:
-            arms[arm].append(ms_per_transition(
-                accept_select if arm == "kernel" else accept_select_ref))
+            arms[arm].append(ms_per_transition(arm))
     wins = sum(k < p for k, p in zip(arms["kernel"], arms["plain"]))
     print("ab: " + json.dumps({
         "ms_per_transition_kernel": arms["kernel"],
