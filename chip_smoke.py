@@ -35,11 +35,25 @@ Phases, each printing its own line; any failure exits non-zero:
               var(v) from the flow's toward the funnel's 9; the band
               |v_mean| < 0.5, |v_var - 9| < 3 is reported, not enforced
               (this configuration misses it: ROADMAP Queue 3);
-  6. spline_ar: the NSF_AR flow of configs/LJ.yaml at full width (2 x
-              SplineAR(96, 32 bins, hidden 354, periodic) on an
-              EinsteinCrystal prior from data/lj_fcc_ref.xyz): density
-              evaluation and sampling of 1024 points, a round trip and
-              kernel-vs-plain on each layer.
+  6. fe_lj  : the free-energy pipeline on configs/LJ.yaml at its full width
+              and depth (NSF_AR, 2 x SplineAR(96, 32 bins, hidden 354,
+              periodic), EinsteinCrystal prior, alpha 1000), through the
+              port's CLI mains on a copy of the config whose paths point
+              into a temporary directory: apps.sample_data (2000 frames,
+              acceptance, finite and in the box), apps.train (8000 epochs;
+              the last chunk's mean log-prob above the first's), apps.test
+              (fe_diff with relaxation at 500 samples: four finite
+              estimates and finite relaxed frames; emus, MBAR capped at
+              its 500 iterations, is reported beside MBAR at 5000 and
+              50000 and must approach bar, and bar must be MBAR's fixed
+              point to 0.05) and apps.fe testing (2000 samples); the
+              training's checkpoint time; exact launch counts of every
+              kernel at each step; each trained layer's RQS kernels against
+              the float64 plain versions, and a round trip;
+  7. fe_einstein: configs/Einstein.yaml, whose exact answer is 0:
+              apps.train (8000 epochs on the analytic target's samples),
+              then apps.test: |bar| <= 0.05, |emus - bar| <= 0.01, md and
+              nf within 0.05 of bar; exact launch counts.
 Then one JSON line describing every kernel, and last the JSON status line.
 Imports nothing of JAX. Exits non-zero without a CUDA device.
 """
@@ -66,7 +80,10 @@ CHAINS, WARMUP, LEAPFROG = 8192, 100, 8
 TRAIN_BATCH = 4096
 FULL_TRAIN_STEPS, FULL_DRAWS = 15000, 1024  # bench.py's depth
 REDUCED_TRAIN_STEPS, REDUCED_DRAWS = 5000, 256
-KERNEL_SHAPES = [(8192, 64), (4096, 96), (1056, 64), (300, 2048), (96, 6)]
+# the last two: apps.sample_data's 256 chains and the HMC mixer's 8, at the
+# LJ config's 96 coordinates
+KERNEL_SHAPES = [(8192, 64), (4096, 96), (1056, 64), (300, 2048), (96, 6),
+                 (256, 96), (8, 96)]
 # accept kernel, checked too: rows wider than a block's registers (float
 # loads, 1030 > 256 threads x 4 units), which stream their tail
 WIDE_SHAPES = [(64, 1030)]
@@ -80,6 +97,10 @@ SP_PEAK_LR, SP_LR_WARMUP = 5e-4, 300
 # RQS kernel checks: rows N, bins K, both directions, these bounds.
 RQS_ROWS = [65536, 262144, 1000]
 RQS_BINS = [8, 32, 64]
+# the free-energy pipeline's forward shapes: integrate_out_v's one flat
+# log_prob of 10 x 500 relaxed LJ frames (10 * 500 * 96 rows), and a
+# training step of the LJ config (batch 40 x 96 coordinates)
+FE_RQS_ROWS = [480000, 3840]
 RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
               "asym": (-1.5, 2.5, -0.5, 4.0)}
 # tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
@@ -93,9 +114,18 @@ RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
 RQS_GRAD_TOL = dict(atol=1e-5, rtol=1e-5)
 VJP_REPS = 20  # timing repetitions of the backward and its plain versions
 
-# The NSF_AR flow of configs/LJ.yaml: 32 LJ particles at rho 1.28.
-LJ_XYZ = Path(__file__).resolve().parent / "data" / "lj_fcc_ref.xyz"
-LJ_N, LJ_RHO, LJ_ALPHA, LJ_LAYERS, LJ_POINTS = 32, 1.28, 1000.0, 2, 1024
+# The free-energy phases: configs/LJ.yaml and configs/Einstein.yaml as
+# shipped, driven through the port's CLI mains.
+ROOT = Path(__file__).resolve().parent
+FE_FRAMES = 2000              # apps.sample_data's default frame count
+DATA_CHAINS, DATA_THIN, DATA_WARMUP = 256, 2, 500  # its HMC settings
+TEST_SAMPLES, FE_SAMPLES, EVAL_BATCH = 500, 2000, 500  # apps.test, apps.fe
+FE_CHECK_ROWS = 1024          # trained-layer kernel checks
+# The JAX package's record of these configs (PARITY_RESULTS.md, TPU v5e):
+# a reference printed beside the port's numbers, never a gate.
+JAX_RECORD = {
+    "LJ": "BAR dF over 3 datasets 9.5778 +- 0.1195 kT/particle",
+    "Einstein": "bar -0.0001 md -0.0085 nf 0.0072 emus -0.0001 (exact 0)"}
 
 
 def log(*a):
@@ -900,94 +930,389 @@ def spline_line(seed, device="cuda"):
                 max_abs_err_vjp=err_vjp)
 
 
-# --------------------------------------------------------------- NSF_AR
-def read_xyz(path):
-    """(centers, boxlength) of an .xyz lattice whose comment line holds
-    `boxlength=<L>`."""
-    lines = path.read_text().splitlines()
-    n = int(lines[0])
-    box = float(lines[1].split("boxlength=")[1].split()[0])
-    centers = [[float(v) for v in ln.split()[-3:]] for ln in lines[2:2 + n]]
-    return centers, box
-
-
-def spline_ar_phase(seed, device="cuda"):
-    from normalizingflow_tpu_torch import NormalizingFlow
-    from normalizingflow_tpu_torch.bijectors import Chain, SplineAR
-    from normalizingflow_tpu_torch.distributions import EinsteinCrystal
+# ----------------------------------------------------- free-energy phases
+def launch_counts():
+    """The four launch counters of the kernels' wrappers."""
+    from normalizingflow_tpu_torch.ops.hmc import (
+        accept_select,
+        accept_select_fused,
+    )
     from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
 
-    centers, box = read_xyz(LJ_XYZ)
-    # configs/LJ.yaml gives rho: the half box (N / (8 rho))^(1/3) is the
-    # spline's tail bound, as config.py's infer_boxlength computes it
-    tail = (LJ_N / (8.0 * LJ_RHO)) ** (1.0 / 3.0)
-    dim = 3 * LJ_N
-    kw = dict(device=device, dtype=torch.float32)
-    gen = torch.Generator(device=device).manual_seed(seed + 2)
-    prior = EinsteinCrystal(centers, alpha=LJ_ALPHA, boxlength=box, **kw)
-    flow = NormalizingFlow(prior, Chain([
-        SplineAR(dim, num_bins=SP_BINS, tail_bound=tail,
-                 hidden_dim=SP_HIDDEN, periodic=True, generator=gen, **kw)
-        for _ in range(LJ_LAYERS)]))
-    x0 = prior.sample(LJ_POINTS, generator=gen)
+    return {"accept_select": accept_select_fused.launches,
+            "accept_unfused": accept_select.launches,
+            "rqs": rqs_cuda.launches, "rqs_vjp": rqs_vjp_cuda.launches}
 
-    rqs_cuda.launches = 0
-    rqs_vjp_cuda.launches = 0
-    with torch.no_grad():
+
+def reset_launch_counts():
+    from normalizingflow_tpu_torch.ops.hmc import (
+        accept_select,
+        accept_select_fused,
+    )
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
+
+    for fn in (accept_select, accept_select_fused, rqs_cuda, rqs_vjp_cuda):
+        fn.launches = 0
+
+
+def fe_config(name, tmp):
+    """configs/<name>.yaml with its data and output paths rewritten into
+    `tmp` and its lattice path made absolute; returns the copy's path."""
+    import yaml
+
+    raw = yaml.safe_load((ROOT / "configs" / f"{name}.yaml").read_text())
+    for key in ("training_data", "testing_data"):
+        if raw["dataset"].get(key):
+            raw["dataset"][key] = str(tmp / "data" /
+                                      Path(raw["dataset"][key]).name)
+    for section in ("dataset", "prior"):
+        if isinstance(raw[section].get("centers"), str):
+            raw[section]["centers"] = str(ROOT / raw[section]["centers"])
+    raw["output"] = {k: f"{tmp / k}/" for k in (
+        "training_dir", "testing_dir", "model_dir", "best_model_dir")}
+    path = tmp / f"{name}.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    return path
+
+
+class Step:
+    """Runs one CLI main: its wall seconds (synchronised), what it printed,
+    and the kernel launches it made."""
+
+    def __init__(self, main, argv):
+        import contextlib
+        import io
+
+        before = launch_counts()
+        out = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lp = flow.log_prob(x0)
+        with contextlib.redirect_stdout(out):
+            rc = main([str(a) for a in argv])
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        xs, log_px, z = flow.sample(LJ_POINTS, generator=gen)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-    launches = rqs_cuda.launches
-    vjp_launches = rqs_vjp_cuda.launches
-    expected = LJ_LAYERS * (1 + dim)
+        self.seconds = time.perf_counter() - t0
+        self.printed = out.getvalue()
+        log(self.printed.rstrip())
+        if rc != 0:
+            raise AssertionError(f"{main.__module__} {argv} exited {rc}")
+        self.launches = {k: v - before[k] for k, v in launch_counts().items()}
 
-    # each layer's kernel against the plain version on its own w, h, d:
-    # forward from the prior draws, inverse from the latents down
-    errs = []
+    def expect(self, label, accept_select=0, rqs=0, rqs_vjp=0):
+        want = dict(accept_select=accept_select, accept_unfused=0, rqs=rqs,
+                    rqs_vjp=rqs_vjp)
+        if self.launches != want:
+            raise AssertionError(f"{label}: launches {self.launches}, the "
+                                 f"code implies {want}")
+
+
+class SpanTimer:
+    """Seconds spent inside functions swapped in place on their modules
+    (synchronised at entry and exit), for a phase's breakdown."""
+
+    def __init__(self, targets):
+        self.targets = targets  # {label: (module, attribute)}
+        self.seconds = dict.fromkeys(targets, 0.0)
+        self.real = {}
+
+    def _timed(self, label, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.synchronize()
+                self.seconds[label] += time.perf_counter() - t0
+        return timed
+
+    def __enter__(self):
+        for label, (module, name) in self.targets.items():
+            self.real[label] = getattr(module, name)
+            setattr(module, name, self._timed(label, self.real[label]))
+        return self
+
+    def __exit__(self, *exc):
+        for label, (module, name) in self.targets.items():
+            setattr(module, name, self.real[label])
+
+
+def checkpoint_timer():
+    """A SpanTimer over the training loop's checkpoint writes and copies."""
+    from normalizingflow_tpu_torch.train import fused
+
+    return SpanTimer({"save": (fused, "save_checkpoint"),
+                      "copy": (fused, "copy_checkpoint")})
+
+
+def data_transitions(nframes):
+    """Transitions apps.sample_data runs for `nframes`: the warmup segment,
+    then segments of at most SEGMENT draws, each draw `DATA_THIN`
+    transitions, padded as run_hmc pads."""
+    from normalizingflow_tpu_torch.apps.sample_data import SEGMENT
+    from normalizingflow_tpu_torch.mcmc import padded_length
+
+    draws = -(-nframes // DATA_CHAINS)
+    segments = [min(SEGMENT, draws - done)
+                for done in range(0, draws, SEGMENT)]
+    return padded_length(DATA_WARMUP) + DATA_THIN * sum(
+        padded_length(n) for n in segments)
+
+
+def sample_launches(nsamples, layers, dim):
+    """RQS launches of generate_from_nf: ceil(n/500) batches, each layer's
+    SplineAR inverse one launch per coordinate."""
+    return -(-nsamples // EVAL_BATCH) * layers * dim
+
+
+def eval_launches(nsamples, layers):
+    """RQS launches of evaluate: ceil(n/500) batches, one a layer."""
+    return -(-nsamples // EVAL_BATCH) * layers
+
+
+def chunk_logprobs(cfg):
+    """(first, last) chunk's mean log-prob of a training run, from the
+    losses its `.last` checkpoint keeps (log-prob = -loss)."""
+    from normalizingflow_tpu_torch.apps.train import checkpoint_path
+    from normalizingflow_tpu_torch.train.checkpoint import load_checkpoint
+
+    losses = load_checkpoint(checkpoint_path(cfg) + ".last")["losses"]
+    return -float(losses[0]), -float(losses[-1]), len(losses)
+
+
+def estimates(path):
+    """The four estimates and arrays apps.test / apps.fe wrote."""
+    import numpy as np
+
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def trained_layer_checks(flow, x, gen):
+    """Each trained SplineAR's RQS kernels against the float64 plain
+    versions on the layer's own w, h, d: forward from data frames `x`,
+    inverse from the latents down, and the backward kernel on the forward's
+    inputs with random cotangents. Returns (max |err| y, max |err| log-det,
+    max |err| VJP, the latents)."""
+    from normalizingflow_tpu_torch.ops.rqs import rqs_cuda, rqs_vjp_cuda
+
     layers = list(flow.bijector.bijectors)
+    errs, vjp_errs = [], []
     with torch.no_grad():
+        z, _ = flow.bijector.forward(x)
         for inverse, order in ((False, layers), (True, layers[::-1])):
-            y = x0 if not inverse else z
+            y = z if inverse else x
             for i, layer in enumerate(order):
                 out, _ = layer.inverse(y) if inverse else layer.forward(y)
                 w, h, d = layer.prep_spline(layer.raw_params(
                     out if inverse else y))
                 b = layer.input_bounds + layer.output_bounds
+                label = f"trained NSF_AR layer {i} inverse={inverse}"
                 got = rqs_cuda(y, w, h, d, inverse, *b)
-                want = plain64(y, w, h, d, inverse, *b)
-                errs.append(compare_rqs(
-                    *got, *want, f"NSF_AR layer {i} inverse={inverse}"))
+                errs.append(compare_rqs(*got, *plain64(y, w, h, d, inverse,
+                                                       *b), label))
+                if not inverse:
+                    cot = [torch.randn(y.shape, device=y.device,
+                                       generator=gen) for _ in range(2)]
+                    vjp_errs.append(compare_vjp(
+                        rqs_vjp_cuda(y, w, h, d, *cot, inverse, *b),
+                        vjp64(y, w, h, d, *cot, inverse, *b), label))
                 y = out
-    rt_z, rt_ld = round_trip(flow, z)
-    stats = dict(dim=dim, layers=LJ_LAYERS, bins=SP_BINS,
-                 hidden=SP_HIDDEN, tail_bound=tail, boxlength=box,
-                 points=LJ_POINTS, log_prob_s=t1 - t0, sample_s=t2 - t1,
-                 rqs_launches=launches, rqs_launches_expected=expected,
-                 rqs_vjp_launches=vjp_launches, mean_log_prob=float(lp.mean()),
-                 mean_log_px=float(log_px.mean()),
-                 max_abs_err_y=max(e[0] for e in errs),
-                 max_abs_err_ld=max(e[1] for e in errs),
-                 round_trip_z=rt_z, round_trip_log_det=rt_ld)
-    log("spline_ar: " + json.dumps(stats))
-    if launches != expected or vjp_launches != 0:
-        raise AssertionError(f"NSF_AR: rqs launched {launches} times and "
-                             f"rqs_vjp {vjp_launches}, the code implies "
-                             f"{expected} and 0 (no gradient)")
-    if not all(bool(torch.isfinite(t).all()) for t in (lp, xs, log_px)):
-        raise AssertionError("NSF_AR: non-finite output")
-    if xs.shape != (LJ_POINTS, dim) or lp.shape != (LJ_POINTS,):
-        raise AssertionError(f"NSF_AR shapes {tuple(xs.shape)}, "
-                             f"{tuple(lp.shape)}")
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            max(vjp_errs), z)
+
+
+MBAR_CAPS = (500, 5000, 50000)  # 500: the solver's own cap (apps.test)
+
+
+def mbar_study(out, n_particles, kT):
+    """emus against BAR on one fe_diff's work matrices (per particle, kT,
+    the stability shift cancelling): MBAR's self-consistent iteration from
+    0 stopped at each cap of MBAR_CAPS, and MBAR started at BAR's answer
+    (state 1's reduced energies shifted by it). For two states MBAR's fixed
+    point is BAR's; where the overlap is poor the iteration from 0 crawls
+    toward it, 500 iterations fall short, and apps.test's emus (the
+    reference's solver, capped at 500) is far from bar. Raises unless MBAR
+    at the largest cap is nearer BAR than at 500 (or both within 0.05 kT a
+    particle: BAR stops at a relative change of 1e-5) and BAR's answer is
+    MBAR's fixed point to 0.05 kT a particle."""
+    from normalizingflow_tpu_torch.estimators import bar, mbar
+
+    q0, q1 = (torch.as_tensor(out[k], dtype=torch.float64)
+              for k in ("Q0", "Q1"))
+    n = q0.shape[0]
+    u = -torch.cat([q0, q1]).T
+    delta = float(bar(q0[:, 0] - q0[:, 1], -q1[:, 0] + q1[:, 1]))
+    scale = kT / n_particles
+    gaps = {cap: abs(float(mbar(u, [n, n], maximum_iterations=cap)[1])
+                     - delta) * scale for cap in MBAR_CAPS}
+    shifted = u.clone()
+    shifted[1] -= delta
+    from_bar = abs(float(mbar(shifted, [n, n])[1])) * scale
+    check = dict(emus_minus_bar_by_cap=gaps, mbar_from_bar_minus_bar=from_bar)
+    log("fe_lj: MBAR against BAR: " + json.dumps(check))
+    first, last = gaps[MBAR_CAPS[0]], gaps[MBAR_CAPS[-1]]
+    if not (from_bar <= 0.05 and (last < first or last <= 0.05)):
+        raise AssertionError(f"fe_lj: MBAR does not approach BAR: {check}")
+    return check
+
+
+def fe_lj_phase(seed):
+    """configs/LJ.yaml through sample_data, train, test and fe testing."""
+    import tempfile
+
+    import numpy as np
+
+    from normalizingflow_tpu_torch.apps import fe, fe_eval, sample_data
+    from normalizingflow_tpu_torch.apps import test as app_test
+    from normalizingflow_tpu_torch.apps import train as app_train
+    from normalizingflow_tpu_torch.config import infer_boxlength, load_config
+    from normalizingflow_tpu_torch.mcmc import relaxation
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        cfg_path = fe_config("LJ", tmp)
+        cfg = load_config(cfg_path)
+        layers, dim = cfg.flow.nlayers, cfg.dataset.nparticles * cfg.dataset.dim
+        _, box = infer_boxlength(cfg.dataset)
+        steps = cfg.train_parameters.max_epochs
+        reset_launch_counts()
+
+        data = Step(sample_data.main, [cfg_path, FE_FRAMES, "--seed", seed])
+        transitions = data_transitions(FE_FRAMES)
+        data.expect("fe_lj sample_data", accept_select=transitions)
+        accept = float(data.printed.split("HMC acceptance ")[1].split(")")[0])
+        frames = np.concatenate([np.load(cfg.dataset.training_data),
+                                 np.load(cfg.dataset.testing_data)])
+        if frames.shape != (FE_FRAMES, dim) or not np.isfinite(frames).all():
+            raise AssertionError(f"fe_lj data: shape {frames.shape}, finite "
+                                 f"{np.isfinite(frames).all()}")
+        if np.abs(frames).max() > box / 2 * (1 + 1e-6):
+            raise AssertionError(f"fe_lj data outside +-L/2: "
+                                 f"{np.abs(frames).max()} > {box / 2}")
+        if not 0.5 <= accept <= 0.99:
+            raise AssertionError(f"fe_lj data acceptance {accept}")
+
+        with checkpoint_timer() as ckpt:
+            train = Step(app_train.main, [cfg_path])
+        train.expect("fe_lj train", rqs=layers * steps,
+                     rqs_vjp=layers * steps)
+        first, last, chunks = chunk_logprobs(cfg)
+        if not last > first:
+            raise AssertionError(f"fe_lj training did not learn: chunk "
+                                 f"log-prob {first} -> {last}")
+
+        spans = SpanTimer({
+            "relaxation": (relaxation, "relaxation_step"),
+            "integrate_out_v": (relaxation, "integrate_out_v"),
+            "estimators": (fe_eval, "_estimates")})
+        with spans:
+            test = Step(app_test.main, [cfg_path])
+        test.expect("fe_lj test", rqs=sample_launches(TEST_SAMPLES, layers,
+                                                      dim) + 2 * layers)
+        out = estimates(tmp / "testing_dir" / "fe_LJ.npz")
+        four = {k: float(out[k]) for k in ("bar", "md", "nf", "emus")}
+        if not all(math.isfinite(v) for v in four.values()):
+            raise AssertionError(f"fe_lj estimates not finite: {four}")
+        if not (np.isfinite(out["x0"]).all() and np.isfinite(out["x1"]).all()):
+            raise AssertionError("fe_lj: a relaxed frame is not finite")
+        mbar_check = mbar_study(out, cfg.dataset.nparticles, cfg.dataset.kT)
+
+        fe_test = Step(fe.main, [cfg_path, "testing"])
+        fe_test.expect("fe_lj fe testing", rqs=2 * (
+            sample_launches(FE_SAMPLES, layers, dim)
+            + eval_launches(FE_SAMPLES, layers)))
+        rec = estimates(tmp / "testing_dir" / "fe_LJ_testing.npz")
+        if not all(math.isfinite(float(rec[k])) for k in (
+                "logp_generated", "logp_data")):
+            raise AssertionError("fe_lj: fe testing log-densities not "
+                                 "finite")
+
+        launches = {k: sum(s.launches[k] for s in (data, train, test,
+                                                   fe_test))
+                    for k in ("accept_select", "rqs", "rqs_vjp")}
+        flow, _, _ = app_test.load_trained(cfg)
+        device = next(flow.parameters()).device
+        gen = torch.Generator(device=device).manual_seed(seed + 3)
+        x = torch.as_tensor(frames[:FE_CHECK_ROWS], device=device,
+                            dtype=torch.float32)
+        err_y, err_ld, err_vjp, z = trained_layer_checks(flow, x, gen)
+        rt_z, rt_ld = round_trip(flow, z)
+
+    stats = dict(
+        dim=dim, layers=layers, bins=cfg.flow.nsplines,
+        hidden=cfg.flow.hidden_dim, boxlength=box, frames=FE_FRAMES,
+        data_s=data.seconds, data_transitions=transitions,
+        data_ms_per_transition=data.seconds * 1e3 / transitions,
+        data_acceptance=accept, train_steps=steps,
+        train_batch=cfg.train_parameters.batch_size, train_s=train.seconds,
+        train_ms_per_step=train.seconds * 1e3 / steps, train_chunks=chunks,
+        train_checkpoint_s=sum(ckpt.seconds.values()),
+        first_chunk_logprob=first, last_chunk_logprob=last,
+        test_s=test.seconds,
+        relaxation_s=spans.seconds["relaxation"]
+        - spans.seconds["integrate_out_v"],
+        integrate_out_v_s=spans.seconds["integrate_out_v"],
+        estimators_s=spans.seconds["estimators"], **four,
+        fe_testing_s=fe_test.seconds,
+        logp_generated=float(rec["logp_generated"]),
+        logp_data=float(rec["logp_data"]),
+        fe_testing={k: float(rec[k]) for k in ("bar", "md", "nf", "emus")},
+        mbar_check=mbar_check,
+        launches=launches, max_abs_err_y=err_y, max_abs_err_ld=err_ld,
+        max_abs_err_vjp=err_vjp, round_trip_z=rt_z, round_trip_log_det=rt_ld,
+        jax_record=JAX_RECORD["LJ"])
+    log("fe_lj: " + json.dumps(stats))
     if not rt_z <= 1e-4 or not rt_ld <= 1e-3:
-        raise AssertionError(f"NSF_AR round trip off: z {rt_z}, log-det "
+        raise AssertionError(f"fe_lj round trip off: z {rt_z}, log-det "
                              f"{rt_ld}")
-    return dict(rqs=launches, rqs_vjp=vjp_launches,
-                max_abs_err=max(max(e) for e in errs))
+    return dict(launches, max_abs_err=max(err_y, err_ld),
+                max_abs_err_vjp=err_vjp)
+
+
+def fe_einstein_phase():
+    """configs/Einstein.yaml: train on the analytic target, then test."""
+    import tempfile
+
+    from normalizingflow_tpu_torch.apps import test as app_test
+    from normalizingflow_tpu_torch.apps import train as app_train
+    from normalizingflow_tpu_torch.config import load_config
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        cfg_path = fe_config("Einstein", tmp)
+        cfg = load_config(cfg_path)
+        layers, dim = cfg.flow.nlayers, cfg.dataset.nparticles * cfg.dataset.dim
+        steps = cfg.train_parameters.max_epochs
+        reset_launch_counts()
+        with checkpoint_timer() as ckpt:
+            train = Step(app_train.main, [cfg_path])
+        train.expect("fe_einstein train", rqs=layers * steps,
+                     rqs_vjp=layers * steps)
+        first, last, chunks = chunk_logprobs(cfg)
+        test = Step(app_test.main, [cfg_path])
+        test.expect("fe_einstein test", rqs=sample_launches(
+            TEST_SAMPLES, layers, dim) + eval_launches(TEST_SAMPLES, layers))
+        out = estimates(tmp / "testing_dir" / "fe_Einstein.npz")
+    four = {k: float(out[k]) for k in ("bar", "md", "nf", "emus")}
+    launches = {k: train.launches[k] + test.launches[k]
+                for k in ("accept_select", "rqs", "rqs_vjp")}
+    stats = dict(dim=dim, layers=layers, train_steps=steps,
+                 train_batch=cfg.train_parameters.batch_size,
+                 train_s=train.seconds,
+                 train_ms_per_step=train.seconds * 1e3 / steps,
+                 train_checkpoint_s=sum(ckpt.seconds.values()),
+                 first_chunk_logprob=first, last_chunk_logprob=last,
+                 test_s=test.seconds, **four, launches=launches,
+                 jax_record=JAX_RECORD["Einstein"])
+    log("fe_einstein: " + json.dumps(stats))
+    if not all(math.isfinite(v) for v in four.values()):
+        raise AssertionError(f"fe_einstein estimates not finite: {four}")
+    bar = four["bar"]
+    if not (abs(bar) <= 0.05 and abs(four["emus"] - bar) <= 0.01
+            and abs(four["md"] - bar) <= 0.05
+            and abs(four["nf"] - bar) <= 0.05):
+        raise AssertionError(f"fe_einstein off the exact 0: {four}")
+    return launches
 
 
 def main(argv=None):
@@ -1023,6 +1348,10 @@ def main(argv=None):
         (n, k, inverse, bname): check_rqs(n, k, bname, inverse, gen, flush)
         for n in RQS_ROWS for k in RQS_BINS for inverse in (True, False)
         for bname in RQS_BOUNDS}
+    rqs_both.update({
+        (n, SP_BINS, False, bname): check_rqs(n, SP_BINS, bname, False, gen,
+                                              flush)
+        for n in FE_RQS_ROWS for bname in RQS_BOUNDS})
     rqs_results = {key: r[0] for key, r in rqs_both.items()}
     vjp_results = {key: r[1] for key, r in rqs_both.items()}
     del flush
@@ -1034,7 +1363,9 @@ def main(argv=None):
     torch.cuda.empty_cache()
     spline = spline_line(args.seed)
     torch.cuda.empty_cache()
-    spline_ar = spline_ar_phase(args.seed)
+    fe_lj = fe_lj_phase(args.seed)
+    torch.cuda.empty_cache()
+    fe_einstein = fe_einstein_phase()
 
     def entry(name, source, replaces, by_path, timed, errs):
         return dict(
@@ -1049,22 +1380,26 @@ def main(argv=None):
         entry("accept_select",
               "normalizingflow_tpu_torch/csrc/accept_select.cu",
               "normalizingflow_tpu/ops/hmc_pallas.py:56",
-              dict(funnel=funnel, spline=spline["accept_select"]),
+              dict(funnel=funnel, spline=spline["accept_select"],
+                   fe_lj=fe_lj["accept_select"],
+                   fe_einstein=fe_einstein["accept_select"]),
               fused[(CHAINS, DIM, "main")],
               [r["max_abs_err"] for r in (*fused.values(),
                                           *unfused.values())]),
         entry("rqs", "normalizingflow_tpu_torch/csrc/rqs.cu",
               "normalizingflow_tpu/ops/rqs_pallas.py:45",
-              dict(spline=spline["rqs"], spline_ar=spline_ar["rqs"]),
+              dict(spline=spline["rqs"], fe_lj=fe_lj["rqs"],
+                   fe_einstein=fe_einstein["rqs"]),
               rqs_results[main_shape],
               [r["max_abs_err"] for r in rqs_results.values()]
-              + [spline["max_abs_err"], spline_ar["max_abs_err"]]),
+              + [spline["max_abs_err"], fe_lj["max_abs_err"]]),
         entry("rqs_vjp", "normalizingflow_tpu_torch/csrc/rqs.cu",
               "normalizingflow_tpu/ops/rqs_pallas.py:264",
-              dict(spline=spline["rqs_vjp"], spline_ar=spline_ar["rqs_vjp"]),
+              dict(spline=spline["rqs_vjp"], fe_lj=fe_lj["rqs_vjp"],
+                   fe_einstein=fe_einstein["rqs_vjp"]),
               vjp_results[main_shape],
               [r["max_abs_err"] for r in vjp_results.values()]
-              + [spline["max_abs_err_vjp"]]),
+              + [spline["max_abs_err_vjp"], fe_lj["max_abs_err_vjp"]]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

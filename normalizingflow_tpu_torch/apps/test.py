@@ -1,0 +1,80 @@
+"""Free-energy evaluation CLI. Twin of normalizingflow_tpu/apps/test.py.
+
+`python -m normalizingflow_tpu_torch.apps.test <config.yaml>`
+
+Loads the trained model (`{model_dir}/{name}.pt`), runs `fe_diff` at 500
+samples (with relaxation for the particle systems, as the reference does)
+and prints the four estimates. Beside the Q plot it writes
+`{testing_dir}/fe_{name}.npz`: the estimates, the work matrices and the
+frames that entered them. Where matplotlib is not installed, the plot is
+skipped with a note on stderr; nothing else depends on it.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ..config import config_device, load_config, setup_model
+from ..params import from_jax, to_numpy
+from ..train.checkpoint import load_checkpoint
+from .fe_eval import fe_diff
+from .train import checkpoint_path
+
+RELAXED_POTENTIALS = ("LJ", "Fe", "EAM")
+
+
+def load_trained(cfg, mode="testing", device=None):
+    """(flow with the checkpoint's params, data potential, cfg)."""
+    device = config_device(cfg) if device is None else device
+    flow, potential, cfg = setup_model(cfg, mode=mode, device=device)
+    state = load_checkpoint(checkpoint_path(cfg),
+                            {"params": to_numpy(flow)})
+    from_jax(flow, state["params"])
+    return flow, potential, cfg
+
+
+def save_estimates(path, out):
+    """The estimates and arrays of an fe_diff result, as one .npz."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **{k: np.asarray(v) for k, v in out.items()})
+
+
+def plot_path_or_none(path):
+    if importlib.util.find_spec("matplotlib") is None:
+        print(f"matplotlib is not installed: {path} not written",
+              file=sys.stderr)
+        return None
+    return path
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if not argv:
+        print("usage: python -m normalizingflow_tpu_torch.apps.test "
+              "<config.yaml>", file=sys.stderr)
+        return 2
+    cfg = load_config(argv[0])
+    flow, potential, cfg = load_trained(cfg)
+    out_dir = cfg.output.testing_dir
+    os.makedirs(out_dir, exist_ok=True)
+    name = cfg.dataset.name
+    device = next(flow.parameters()).device
+    out = fe_diff(
+        flow, potential, nsamples=500, n_particles=cfg.dataset.nparticles,
+        kT=cfg.dataset.kT,
+        plot_path=plot_path_or_none(os.path.join(out_dir, f"Q_{name}.png")),
+        relaxation=cfg.dataset.potential in RELAXED_POTENTIALS,
+        generator=torch.Generator(device=device).manual_seed(cfg.seed + 1))
+    save_estimates(os.path.join(out_dir, f"fe_{name}.npz"), out)
+    print(f"bar={out['bar']:.6f} md={out['md']:.6f} nf={out['nf']:.6f} "
+          f"emus={out['emus']:.6f}  (kT per particle)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

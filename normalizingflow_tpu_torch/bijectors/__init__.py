@@ -1,8 +1,8 @@
 from .autoregressive import MaskedAffineAR, SplineAR
-from .base import Bijector, Chain, Invert
+from .base import Bijector, Chain, Invert, Repeat
 from .coupling import AffineCoupling, SplineCoupling
 from .elementary import ActNorm
 from .mlp import MLP
 
-__all__ = ["Bijector", "Chain", "Invert", "AffineCoupling", "SplineCoupling",
-           "SplineAR", "MaskedAffineAR", "ActNorm", "MLP"]
+__all__ = ["Bijector", "Chain", "Invert", "Repeat", "AffineCoupling",
+           "SplineCoupling", "SplineAR", "MaskedAffineAR", "ActNorm", "MLP"]

@@ -6,8 +6,7 @@ that owns its parameters:
     y, log_det = bij.forward(x)     # x -> y,  per-sample log|dy/dx|
     x, log_det = bij.inverse(y)     # y -> x,  per-sample log|dx/dy|
 
-Shapes: x is (batch, dim); log_det is (batch,). `Repeat` (stacked params
-under lax.scan in JAX) is not ported yet.
+Shapes: x is (batch, dim); log_det is (batch,).
 """
 
 from __future__ import annotations
@@ -47,6 +46,23 @@ class Chain(Bijector):
             y, ld = b.inverse(y)
             log_det = log_det + ld
         return y, log_det
+
+
+class Repeat(Chain):
+    """`n` copies of one bijector with independent parameters: forward in
+    order, inverse in reverse, as a Chain.
+
+    The JAX twin stacks the per-layer params on a leading axis and runs
+    them under lax.scan, so its params tree is one layer's tree with every
+    leaf stacked; `params.from_jax` and `to_numpy` stack and unstack along
+    that axis. Takes the n layers, all of one type.
+    """
+
+    def __init__(self, bijectors):
+        bijectors = list(bijectors)
+        if not bijectors or len({type(b) for b in bijectors}) != 1:
+            raise ValueError("Repeat takes one or more layers of one type")
+        super().__init__(bijectors)
 
 
 class Invert(Bijector):

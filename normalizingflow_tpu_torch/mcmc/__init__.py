@@ -27,6 +27,13 @@ from .neutra import (
     pullback_logprob_batched,
     push_to_data,
 )
+from .relaxation import (
+    RelaxationResult,
+    collect_hmc_data,
+    integrate_out_v,
+    metropolize,
+    relaxation_step,
+)
 
 __all__ = [
     "DualAveragingState", "WelfordState", "da_init", "da_step_size",
@@ -36,4 +43,6 @@ __all__ = [
     "hmc_transition", "leapfrog", "padded_length", "run_hmc",
     "transition_draws",
     "NeutraResult", "neutra_hmc", "pullback_logprob_batched", "push_to_data",
+    "RelaxationResult", "collect_hmc_data", "integrate_out_v", "metropolize",
+    "relaxation_step",
 ]

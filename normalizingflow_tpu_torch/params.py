@@ -18,6 +18,8 @@ and the spline layers' trees are
 (`cond` is absent at dim 1). MLP weights keep the JAX (fan_in, fan_out)
 layout and the AR layers their stacked (dim-1, ...) one, so leaves copy as
 they are. `NormalizingFlow` and `Invert` carry their inner bijector's tree.
+A `Repeat` of n layers is one layer's tree with every leaf stacked on a
+new leading axis of length n.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .bijectors.base import Chain, Invert
+from .bijectors.base import Chain, Invert, Repeat
 from .flow import NormalizingFlow
 
 
@@ -35,6 +37,15 @@ def _root(module):
     return module
 
 
+def _map(fn, *trees):
+    """fn over the leaves of trees of dicts and tuples of one structure."""
+    if isinstance(trees[0], dict):
+        return {k: _map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], (tuple, list)):
+        return tuple(_map(fn, *sub) for sub in zip(*trees))
+    return fn(*trees)
+
+
 def from_jax(module, tree):
     """Copy a JAX params tree (numpy leaves) into `module` in place.
 
@@ -42,6 +53,10 @@ def from_jax(module, tree):
     tree's structure, keys or shapes differ from the module's.
     """
     module = _root(module)
+    if isinstance(module, Repeat):
+        for i, layer in enumerate(module.bijectors):
+            from_jax(layer, _map(lambda a, i=i: np.asarray(a)[i], tree))
+        return module
     if isinstance(module, Chain):
         if not isinstance(tree, (tuple, list)) or len(tree) != len(
                 module.bijectors):
@@ -75,6 +90,9 @@ def from_jax(module, tree):
 def to_numpy(module):
     """The module's parameters as a JAX-shaped tree of numpy arrays."""
     module = _root(module)
+    if isinstance(module, Repeat):
+        return _map(lambda *leaves: np.stack(leaves),
+                    *(to_numpy(b) for b in module.bijectors))
     if isinstance(module, Chain):
         return tuple(to_numpy(b) for b in module.bijectors)
     tree = {k: p.detach().cpu().numpy()

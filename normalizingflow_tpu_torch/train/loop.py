@@ -1,9 +1,12 @@
-"""The bench's reverse-KL training loop and its optimizer.
+"""Optimizers and schedules, and the bench's reverse-KL training loop.
 
-Twin of the optimizer in bench.py (`optax.chain(clip_by_global_norm(1.0),
+Twin of normalizingflow_tpu/train/loop.py (`make_optimizer`: Adam with the
+reference's exponential, cosine or constant rate) and of the optimizer in
+bench.py (`optax.chain(clip_by_global_norm(1.0),
 adam(warmup_cosine_decay_schedule(0, peak, warmup, steps)))`, with peak and
 warmup 1e-3 and 500 on the funnel line, 5e-4 and 300 on the spline line)
-and of its train loop. The optimizer reproduces optax's arithmetic, not torch.optim.Adam's:
+and its train loop. One Adam serves both, with or without the clip, and
+reproduces optax's arithmetic, not torch.optim.Adam's:
 
   * clipping is optax's `select(norm < max_norm, g, (g / norm) * max_norm)`
     (torch's clip_grad_norm_ divides by norm + 1e-6 instead);
@@ -49,41 +52,63 @@ def warmup_cosine_decay_schedule(init_value, peak_value, warmup_steps,
     return schedule
 
 
-class ClippedAdam(torch.optim.Optimizer):
-    """clip_by_global_norm(1.0) followed by Adam (optax's defaults b1 0.9,
-    b2 0.999, eps 1e-8) with a step schedule, with optax's arithmetic (see
-    the module docstring). One param group."""
+def exponential_decay(init_value, decay_rate):
+    """optax.exponential_decay(init, transition_steps=1, decay_rate):
+    init * rate**k."""
+    return lambda count: init_value * decay_rate ** count
+
+
+def cosine_decay_schedule(init_value, decay_steps):
+    """optax.cosine_decay_schedule with alpha 0: k is clamped to
+    decay_steps, init * (1 + cos(pi k / decay_steps)) / 2."""
+    if decay_steps <= 0:
+        raise ValueError("need decay_steps > 0")
+
+    def schedule(count):
+        k = min(count, decay_steps)
+        return init_value * (0.5 * (1 + math.cos(math.pi * k / decay_steps)))
+
+    return schedule
+
+
+class Adam(torch.optim.Optimizer):
+    """Adam (optax's defaults b1 0.9, b2 0.999, eps 1e-8) with a step
+    schedule and optax's arithmetic (see the module docstring); with
+    `clip`, optax's clip_by_global_norm(1.0) first. One param group. The
+    moments keep each parameter's dtype (float32 on the card)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params, schedule):
+    def __init__(self, params, schedule, clip=False):
         super().__init__(params, {})
         if len(self.param_groups) != 1:
-            raise ValueError("ClippedAdam takes one parameter group")
+            raise ValueError(f"{type(self).__name__} takes one parameter "
+                             f"group")
         self.schedule = schedule
+        self.clip = clip
         self.count = 0  # updates applied so far
+        for p in self.param_groups[0]["params"]:
+            self.state[p]["mu"] = torch.zeros_like(p)
+            self.state[p]["nu"] = torch.zeros_like(p)
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
-            raise ValueError("ClippedAdam.step takes no closure")
+            raise ValueError(f"{type(self).__name__}.step takes no closure")
         b1, b2 = self.B1, self.B2
         params = [p for p in self.param_groups[0]["params"]
                   if p.grad is not None]
         grads = [p.grad for p in params]
-        for p in params:
-            if not self.state[p]:
-                self.state[p]["mu"] = torch.zeros_like(p)
-                self.state[p]["nu"] = torch.zeros_like(p)
         mu = [self.state[p]["mu"] for p in params]
         nu = [self.state[p]["nu"] for p in params]
 
-        # optax: select(norm < 1, g, (g / norm) * 1), as a division by
-        # where(norm < 1, 1, norm), which keeps the decision on the device.
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-        one = torch.ones_like(g_norm)
-        grads = torch._foreach_div(grads, torch.where(g_norm < 1.0, one,
-                                                      g_norm))
+        if self.clip:
+            # optax: select(norm < 1, g, (g / norm) * 1), as a division by
+            # where(norm < 1, 1, norm), which keeps the decision on the
+            # device.
+            g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+            grads = torch._foreach_div(grads, torch.where(
+                g_norm < 1.0, torch.ones_like(g_norm), g_norm))
 
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
@@ -99,6 +124,51 @@ class ClippedAdam(torch.optim.Optimizer):
         torch._foreach_div_(mu_hat, denom)
         torch._foreach_mul_(mu_hat, -lr)
         torch._foreach_add_(params, mu_hat)
+
+    def state_tree(self):
+        """{"count", "mu", "nu"}: the update count and both moments, as
+        numpy arrays in parameter order (a checkpoint's opt_state)."""
+        ps = self.param_groups[0]["params"]
+        return {"count": self.count,
+                "mu": [self.state[p]["mu"].cpu().numpy() for p in ps],
+                "nu": [self.state[p]["nu"].cpu().numpy() for p in ps]}
+
+    @torch.no_grad()
+    def load_state_tree(self, tree):
+        """Restore `state_tree()`'s output, cast to each parameter's dtype
+        and device."""
+        ps = self.param_groups[0]["params"]
+        if len(tree["mu"]) != len(ps) or len(tree["nu"]) != len(ps):
+            raise ValueError("optimizer state does not match the parameters")
+        for p, mu, nu in zip(ps, tree["mu"], tree["nu"]):
+            self.state[p]["mu"].copy_(torch.as_tensor(mu))
+            self.state[p]["nu"].copy_(torch.as_tensor(nu))
+        self.count = int(tree["count"])
+
+
+class ClippedAdam(Adam):
+    """clip_by_global_norm(1.0) followed by Adam."""
+
+    def __init__(self, params, schedule):
+        super().__init__(params, schedule, clip=True)
+
+
+def make_optimizer(params, learning_rate=1e-4, scheduler="exponential",
+                   gamma=0.999, max_epochs=4000):
+    """Adam with the reference's rate schedules: exponential (lr gamma^k),
+    cosine to 0 over max_epochs, or constant (None, "none", "constant").
+    Adam's moments stay in the parameters' dtype: the JAX package's bf16
+    first moment for multi-GB flows is not ported."""
+    if scheduler == "exponential":
+        schedule = exponential_decay(learning_rate, gamma)
+    elif scheduler == "cosine":
+        schedule = cosine_decay_schedule(learning_rate, max_epochs)
+    elif scheduler in (None, "none", "constant"):
+        def schedule(count):
+            return learning_rate
+    else:
+        raise ValueError(f"unknown scheduler {scheduler!r}")
+    return Adam(params, schedule)
 
 
 def bench_optimizer(params, steps, warmup_steps=500, peak_lr=1e-3):

@@ -8,8 +8,19 @@ from pathlib import Path
 import pytest
 import torch
 
-from normalizingflow_tpu_torch.mcmc import neutra_hmc, run_hmc
+from normalizingflow_tpu_torch.apps.sample_data import generate
+from normalizingflow_tpu_torch.config import (
+    Config,
+    config_device,
+    setup_model,
+)
+from normalizingflow_tpu_torch.mcmc import (
+    collect_hmc_data,
+    neutra_hmc,
+    run_hmc,
+)
 from normalizingflow_tpu_torch.targets import NealsFunnel
+from normalizingflow_tpu_torch.train.fused import train_flow_fused
 from normalizingflow_tpu_torch.train.loop import train
 
 torch.set_num_threads(1)
@@ -53,6 +64,28 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
         neutra_hmc(gen, torch.nn.Linear(2, 2), NealsFunnel(2), 4, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(torch.nn.Linear(2, 2), NealsFunnel(2), 1, 4, gen)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_flow_fused(torch.nn.Linear(2, 2), gen, NealsFunnel(2))
+    flow = torch.nn.Linear(2, 2)
+    flow.sample = lambda n, generator=None, z=None: (torch.zeros(n, 2),) * 3
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        collect_hmc_data(flow, NealsFunnel(2), n_chains=2)
+
+
+@pytest.mark.parametrize("device", ["tpu", "cuda", "cuda:1", None])
+def test_configs_run_on_the_card_unless_they_say_cpu(device):
+    """A config's `device:` key: cpu is the CPU; tpu, cuda, cuda:N or no
+    key mean the card, which raises here instead of falling back."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    cfg = Config(device=device)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        config_device(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        setup_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        generate(cfg, nframes=4, chains=2)
+    assert config_device(Config(device="cpu")) == torch.device("cpu")
 
 
 def test_entry_points_refuse_tensors_on_another_device():

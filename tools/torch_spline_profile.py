@@ -79,9 +79,14 @@ def profile(fn, n, label):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    # Kernels only: a record_function range of the host
+    # (Optimizer.step#Adam.step) is also reported on the device, with the
+    # time of the kernels inside it, which would count them twice.
+    averages = prof.key_averages()
+    host = {ev.key for ev in averages if ev.cpu_time_total > 0}
     dev = [(ev.key, ev.device_time_total / 1e3, ev.count)
-           for ev in prof.key_averages()
-           if ev.device_time_total > 0
+           for ev in averages
+           if ev.device_time_total > 0 and ev.key not in host
            and ev.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(t for _, t, _ in dev)
     dev.sort(key=lambda r: -r[1])
