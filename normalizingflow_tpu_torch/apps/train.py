@@ -103,7 +103,8 @@ def main(argv=None):
             print("rkl_finetune_steps set but the training target has no "
                   "log_prob (pure dataset); fine-tune skipped",
                   file=sys.stderr)
-    print(f"best logprob: {history['best_logprob']:.3f}; checkpoint: {ckpt}")
+    print(f"best logprob: {history['best_logprob']:.3f}; checkpoint: {ckpt}; "
+          f"Adam mu {history['adam_mu_dtype']}")
     return 0
 
 

@@ -14,8 +14,7 @@ Twin of normalizingflow_tpu/config.py.
     key mean the card (the configs name the accelerator they were written
     for). Nothing falls back to the CPU: without a card, `cuda` raises.
 
-Targets and flows the port does not have yet (EAM iron, phi^4, the
-Gaussian free field; Planar, Radial, OneByOneConv) raise
+Flows the port does not have yet (Planar, Radial, OneByOneConv) raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -41,7 +40,13 @@ from .bijectors import (
 from .device import entry_device
 from .distributions import DiagNormal, EinsteinCrystal, GaussianMixture
 from .flow import NormalizingFlow
-from .targets import LennardJones, TrajectoryDataset
+from .targets import (
+    EAMIron,
+    GaussianField,
+    LennardJones,
+    Phi4Lattice,
+    TrajectoryDataset,
+)
 
 
 # --------------------------------------------------------------- schema
@@ -237,12 +242,23 @@ def build_potential(name, cfg_section, ds: DatasetConfig, boxlength=None,
     if name == "SimData":
         return TrajectoryDataset(ds.data, data_type=ds.type, **kw)
     if name == "Fe":
-        raise _not_ported("the EAM iron target (targets/eam.py)", 16)
+        # dataset.input_dir names the EAM setfl table (the reference's
+        # LAMMPS potential file); without it, the analytic Finnis-Sinclair
+        # model
+        setfl = ds.input_dir
+        if setfl and not os.path.exists(setfl):
+            raise FileNotFoundError(
+                f"dataset.input_dir={setfl!r} (EAM setfl table) not found")
+        return EAMIron(ds.nparticles, boxlength=boxlength, kT=ds.kT,
+                       setfl_path=setfl or None, pos_dir=data,
+                       data_type=ds.type, **kw)
     if name == "Phi4":
-        raise _not_ported("the phi^4 lattice target (targets/phi4.py)", 16)
+        return Phi4Lattice(L=ds.L, kappa=ds.kappa, lam=ds.lam, pos_dir=data,
+                           data_type=ds.type, **kw)
     if name == "GaussianField":
-        raise _not_ported("the Gaussian free field target (targets/gff.py)",
-                          16)
+        return GaussianField(
+            L=ds.L, channels=ds.channels,
+            mass=ds.mass if ds.mass is not None else (0.5, 1.0), **kw)
     raise KeyError(f"unknown potential {name!r}")
 
 

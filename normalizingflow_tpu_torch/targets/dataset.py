@@ -5,12 +5,15 @@ A trajectory is loaded from .xyz / .npy / .pt into one (frames, flat_dim)
 tensor on the dataset's device. `sample` gathers rows there: random rows
 with replacement from an explicit `torch.Generator`, given rows `idx` (so a
 test can replay the JAX package's indices), or the head of the trajectory.
+`TrajectoryTarget` attaches one to a physical target (LJ, EAM, phi^4).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .base import Target
 
 
 def load_trajectory(path, data_type="xyz"):
@@ -74,3 +77,33 @@ class TrajectoryDataset:
 
     def __len__(self):
         return 0 if self.traj is None else int(self.traj.shape[0])
+
+
+class TrajectoryTarget(Target):
+    """A physical target that can carry a trajectory (the reference's
+    System + SimData hybrid), so it doubles as the training CLI's data
+    source: `sample` draws frames from the attached TrajectoryDataset,
+    `update_data` replaces or extends it. Subclasses call `_attach` from
+    their constructor."""
+
+    def _attach(self, pos_dir, data_type, device, dtype):
+        self.data_type = data_type
+        self.data_device, self.data_dtype = device, dtype
+        self.dataset = None
+        if pos_dir:
+            self.update_data(pos_dir)
+
+    def sample(self, nsamples, generator=None, **kw):
+        if self.dataset is None:
+            raise ValueError(
+                f"{type(self).__name__} has no attached trajectory data; "
+                f"generate one with apps.sample_data or pass pos_dir")
+        return self.dataset.sample(nsamples, generator=generator, **kw)
+
+    def update_data(self, path=None, data=None, append=False):
+        if self.dataset is None:
+            self.dataset = TrajectoryDataset(
+                path, self.data_type, data=data, device=self.data_device,
+                dtype=self.data_dtype)
+        else:
+            self.dataset.update_data(path, data=data, append=append)

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import Target
+from .dataset import TrajectoryTarget
 
 
 def lj_pair_energy_total(pos, boxlength, epsilon=1.0, sigma=1.0, cutoff=None,
@@ -43,7 +43,7 @@ def lj_pair_energy_total(pos, boxlength, epsilon=1.0, sigma=1.0, cutoff=None,
     return 0.5 * torch.sum(pair, dim=(-2, -1))
 
 
-class LennardJones(Target):
+class LennardJones(TrajectoryTarget):
     """LJ solid target. potential(x): x (batch, n*d) or (batch, n, d) ->
     (batch,) total energies; log_prob = -U/kT. With trajectory data attached
     (`pos_dir` or `update_data`), `sample` draws frames from it."""
@@ -61,11 +61,7 @@ class LennardJones(Target):
         self.cutoff = None if cutoff is None else float(cutoff)
         self.shift = bool(shift)
         self.kT = float(kT)
-        self.data_type = data_type
-        self.data_device, self.data_dtype = device, dtype
-        self.dataset = None
-        if pos_dir:
-            self.update_data(pos_dir)
+        self._attach(pos_dir, data_type, device, dtype)
 
     def potential(self, x):
         pos = x.reshape(-1, self.n_particles, self.point_dim)
@@ -74,21 +70,3 @@ class LennardJones(Target):
 
     def log_prob(self, x):
         return -self.potential(x) / self.kT
-
-    # dataset attachment (the reference's LJ(SimData) hybrid)
-    def sample(self, nsamples, generator=None, **kw):
-        if self.dataset is None:
-            raise ValueError(
-                "LennardJones has no attached trajectory data; generate one "
-                "with apps.sample_data or pass pos_dir")
-        return self.dataset.sample(nsamples, generator=generator, **kw)
-
-    def update_data(self, path=None, data=None, append=False):
-        from .dataset import TrajectoryDataset
-
-        if self.dataset is None:
-            self.dataset = TrajectoryDataset(
-                path, self.data_type, data=data, device=self.data_device,
-                dtype=self.data_dtype)
-        else:
-            self.dataset.update_data(path, data=data, append=append)

@@ -14,6 +14,13 @@ results, so its effect is kept:
     its acceptance lies in (0.3, 0.6), the first step of each chunk draws
     its batch from the mixer's relaxed data until the next check.
 
+Adam's first moment follows the JAX package's memory policy
+(`adam_mu_dtype`): bfloat16 where the projected training residency, 4.25x
+the parameter bytes (params, both moments, grads, transients), exceeds the
+device's budget; float32 otherwise. JAX's budget is the TPU v5e's 14.5e9 of
+16 GB; the port takes the same share of the card's own memory, and keeps
+14.5e9 on the CPU.
+
 Minibatches: a source with a `traj` tensor (TrajectoryDataset) gathers
 random rows of it on the device; any other source draws with its own
 `sample`. Both take their draws from `generator`, whose state a checkpoint
@@ -39,6 +46,23 @@ from .objectives import forward_kl_loss
 
 logger = logging.getLogger("normalizingflow_tpu_torch.train")
 
+RESIDENCY_PER_PARAM_BYTE = 4.25  # params + mu + nu + grads + transients
+BUDGET_SHARE = 14.5 / 16         # JAX's 14.5e9 of the v5e's 16 GB
+CPU_BUDGET = 14.5e9
+
+
+def adam_mu_dtype(param_bytes, device, capacity=None):
+    """torch.bfloat16 if 4.25 x `param_bytes` exceeds the training budget,
+    else None (the parameters' dtype). The budget is 14.5/16 of
+    `capacity`, by default the card's total memory; on the CPU, without a
+    capacity, it is JAX's 14.5e9."""
+    if capacity is None and device.type == "cuda":
+        capacity = torch.cuda.mem_get_info(device)[1]
+    budget = CPU_BUDGET if capacity is None else BUDGET_SHARE * capacity
+    if RESIDENCY_PER_PARAM_BYTE * param_bytes > budget:
+        return torch.bfloat16
+    return None
+
 
 def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
                      batch_size=100, learning_rate=1e-4,
@@ -47,7 +71,8 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
                      hmc_mixer=None, mix_every=None, batches=None,
                      device="cuda"):
     """Train `flow` in place by forward KL on `data_source`; returns the
-    history {"losses" (one per chunk), "best_logprob", "steps_per_s"}.
+    history {"losses" (one per chunk), "best_logprob", "steps_per_s",
+    "adam_mu_dtype" (the stored first moment's dtype)}.
 
     `resume_from`: a `.last` checkpoint of an earlier run; params, the
     optimizer, the generator's state, the epoch and the losses are restored
@@ -61,8 +86,15 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
     """
     device = entry_device(device)
     check_on(device, *flow.parameters())
-    optimizer = make_optimizer(list(flow.parameters()), learning_rate,
-                               scheduler, gamma, max_epochs)
+    params = list(flow.parameters())
+    param_bytes = sum(p.numel() * p.element_size() for p in params)
+    mu_dtype = adam_mu_dtype(param_bytes, device)
+    if mu_dtype is not None:
+        logger.info("large model (%.2f GB params): keeping Adam mu in "
+                    "bfloat16", param_bytes / 1e9)
+    optimizer = make_optimizer(params, learning_rate, scheduler, gamma,
+                               max_epochs, mu_dtype=mu_dtype)
+    mu_name = str(mu_dtype or params[0].dtype).removeprefix("torch.")
 
     start_epoch = 0
     losses = []
@@ -103,7 +135,8 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
                     "max_epochs %d); returning checkpointed parameters.",
                     start_epoch, max_epochs)
         return {"losses": np.asarray(losses), "best_logprob": best_logprob,
-                "steps_per_s": 0.0, "already_complete": True}
+                "steps_per_s": 0.0, "already_complete": True,
+                "adam_mu_dtype": mu_name}
 
     mix_data, use_mix = None, False
     mix_log = []
@@ -164,7 +197,8 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
             best_logprob = logprob
     history = {"losses": np.asarray(losses), "best_logprob": best_logprob,
                "steps_per_s": (max_epochs - start_epoch)
-               / (time.time() - t0)}
+               / (time.time() - t0),
+               "adam_mu_dtype": mu_name}
     if mixing:
         history["hmc_mixing"] = mix_log
     return history

@@ -13,7 +13,13 @@ reproduces optax's arithmetic, not torch.optim.Adam's:
   * the learning rate of update k (0-based) is schedule(k), so the first
     update has lr = schedule(0) = 0 under the bench's warmup;
   * `decay_steps` counts the warmup, as optax's does;
-  * Adam's eps sits outside the square root: m_hat / (sqrt(v_hat) + eps).
+  * Adam's eps sits outside the square root: m_hat / (sqrt(v_hat) + eps);
+  * with `mu_dtype=torch.bfloat16` (the training loop's memory policy for
+    multi-GB flows, train/fused.py::adam_mu_dtype), the first moment is
+    stored in bfloat16 and updated in optax's order: b1 * mu is taken in
+    bfloat16 (JAX casts the Python scalar to the moment's dtype), added to
+    (1 - b1) * g in the gradient's dtype, the step uses that full-precision
+    moment, and only the stored moment is rounded to bfloat16.
 
 optax evaluates the schedule on an int32 step counter, which JAX turns into
 float32 arithmetic; the port evaluates the same formula in float64, and a
@@ -75,20 +81,22 @@ class Adam(torch.optim.Optimizer):
     """Adam (optax's defaults b1 0.9, b2 0.999, eps 1e-8) with a step
     schedule and optax's arithmetic (see the module docstring); with
     `clip`, optax's clip_by_global_norm(1.0) first. One param group. The
-    moments keep each parameter's dtype (float32 on the card)."""
+    second moment keeps each parameter's dtype (float32 on the card), the
+    first moment too unless `mu_dtype` is given."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
-    def __init__(self, params, schedule, clip=False):
+    def __init__(self, params, schedule, clip=False, mu_dtype=None):
         super().__init__(params, {})
         if len(self.param_groups) != 1:
             raise ValueError(f"{type(self).__name__} takes one parameter "
                              f"group")
         self.schedule = schedule
         self.clip = clip
+        self.mu_dtype = mu_dtype
         self.count = 0  # updates applied so far
         for p in self.param_groups[0]["params"]:
-            self.state[p]["mu"] = torch.zeros_like(p)
+            self.state[p]["mu"] = torch.zeros_like(p, dtype=mu_dtype)
             self.state[p]["nu"] = torch.zeros_like(p)
 
     @torch.no_grad()
@@ -110,13 +118,25 @@ class Adam(torch.optim.Optimizer):
             grads = torch._foreach_div(grads, torch.where(
                 g_norm < 1.0, torch.ones_like(g_norm), g_norm))
 
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, torch._foreach_mul(
             torch._foreach_mul(grads, grads), 1 - b2))
         lr = self.schedule(self.count)
         self.count += 1
+        if self.mu_dtype is not None:
+            # one parameter at a time, the same operations as below: the
+            # full-precision moment is a transient of one tensor, not of
+            # the whole model
+            b1_low = float(torch.tensor(b1, dtype=self.mu_dtype))
+            for p, m, v, g in zip(params, mu, nu, grads):
+                f = (m * b1_low).to(g.dtype) + g * (1 - b1)
+                m.copy_(f)
+                f.div_(1 - b1**self.count)
+                f.div_(torch.sqrt(v / (1 - b2**self.count)).add_(self.EPS))
+                p.add_(f.mul_(-lr))
+            return
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
         mu_hat = torch._foreach_div(mu, 1 - b1**self.count)
         denom = torch._foreach_div(nu, 1 - b2**self.count)
         torch._foreach_sqrt_(denom)
@@ -130,13 +150,13 @@ class Adam(torch.optim.Optimizer):
         numpy arrays in parameter order (a checkpoint's opt_state)."""
         ps = self.param_groups[0]["params"]
         return {"count": self.count,
-                "mu": [self.state[p]["mu"].cpu().numpy() for p in ps],
-                "nu": [self.state[p]["nu"].cpu().numpy() for p in ps]}
+                "mu": [_host(self.state[p]["mu"]) for p in ps],
+                "nu": [_host(self.state[p]["nu"]) for p in ps]}
 
     @torch.no_grad()
     def load_state_tree(self, tree):
-        """Restore `state_tree()`'s output, cast to each parameter's dtype
-        and device."""
+        """Restore `state_tree()`'s output, cast to each moment's dtype
+        (so a state saved under either mu_dtype loads) and device."""
         ps = self.param_groups[0]["params"]
         if len(tree["mu"]) != len(ps) or len(tree["nu"]) != len(ps):
             raise ValueError("optimizer state does not match the parameters")
@@ -144,6 +164,13 @@ class Adam(torch.optim.Optimizer):
             self.state[p]["mu"].copy_(torch.as_tensor(mu))
             self.state[p]["nu"].copy_(torch.as_tensor(nu))
         self.count = int(tree["count"])
+
+
+def _host(t):
+    """A CPU copy of t: a numpy array, or a tensor where numpy has no such
+    dtype (bfloat16)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
 
 
 class ClippedAdam(Adam):
@@ -154,11 +181,13 @@ class ClippedAdam(Adam):
 
 
 def make_optimizer(params, learning_rate=1e-4, scheduler="exponential",
-                   gamma=0.999, max_epochs=4000):
+                   gamma=0.999, max_epochs=4000, mu_dtype=None):
     """Adam with the reference's rate schedules: exponential (lr gamma^k),
     cosine to 0 over max_epochs, or constant (None, "none", "constant").
-    Adam's moments stay in the parameters' dtype: the JAX package's bf16
-    first moment for multi-GB flows is not ported."""
+    `mu_dtype=torch.bfloat16` keeps Adam's first moment in bfloat16, the
+    memory policy train/fused.py applies to flows too large for the
+    device in float32; by default both moments keep the parameters'
+    dtype."""
     if scheduler == "exponential":
         schedule = exponential_decay(learning_rate, gamma)
     elif scheduler == "cosine":
@@ -168,7 +197,7 @@ def make_optimizer(params, learning_rate=1e-4, scheduler="exponential",
             return learning_rate
     else:
         raise ValueError(f"unknown scheduler {scheduler!r}")
-    return Adam(params, schedule)
+    return Adam(params, schedule, mu_dtype=mu_dtype)
 
 
 def bench_optimizer(params, steps, warmup_steps=500, peak_lr=1e-3):

@@ -1,10 +1,9 @@
 """The port's config parsing, model factories and CLI apps, against the JAX
 package's.
 
-Every file in configs/ parses to JAX's values; every config builds where
-its parts are ported (on the meta device, so the 2048-dim Polymer stacks
-take no memory) with JAX's Repeat/Chain choice and parameter count, and
-raises NotImplementedError where they are not; an LJ-shaped flow built
+Every file in configs/ parses to JAX's values; every config builds (on the
+meta device, so the 2048-dim Polymer stacks take no memory) with JAX's
+Repeat/Chain choice, parameter count and target; an LJ-shaped flow built
 from LJ.yaml takes JAX's weights and gives JAX's densities at rtol 1e-10;
 and the whole CLI pipeline (sample_data -> train -> test -> fe) runs on a
 4-particle LJ solid with `device: cpu` and ends with finite estimates.
@@ -31,7 +30,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 ALL_CONFIGS = sorted(glob.glob(os.path.join(ROOT, "configs", "*.yaml")))
-NOT_PORTED = {"Fe_100K", "Fe_400K", "Fe_700K", "Phi4"}  # EAM, phi^4
+# targets that sample only from a trajectory file
+DATA_BACKED = {"LJ", "SimData", "Fe", "Phi4"}
 
 
 @pytest.fixture(autouse=True)
@@ -66,16 +66,19 @@ def test_config_builds_or_names_what_is_missing(path):
     assert isinstance(stack, Repeat) == isinstance(jstack, JRepeat)
     assert sum(p.numel() for p in stack.parameters()) == \
         n_params_jax(jstack)
-    if cfg.dataset.name in NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tconfig.setup_model(cfg, device="meta")
-        return
-    if cfg.dataset.potential in ("LJ", "SimData"):
-        return  # needs trajectory files; the model part is checked above
+    if cfg.dataset.potential == "SimData":
+        return  # needs the trajectory file; the model part is checked above
+    _, potential, cfg2 = tconfig.setup_model(cfg, device="meta")
+    _, jpotential, jcfg2 = jconfig.setup_model(jcfg)
+    assert dataclasses.asdict(cfg2) == dataclasses.asdict(jcfg2)
+    assert type(potential).__name__ == type(jpotential).__name__
+    assert potential.dim == jpotential.dim == prior.dim
+    assert getattr(potential, "boxlength", None) == \
+        getattr(jpotential, "boxlength", None)
+    if cfg.dataset.potential in DATA_BACKED:
+        return  # samples need trajectory files
     flow, potential, cfg2 = tconfig.setup_model(cfg, device="cpu",
                                                 dtype=torch.float64)
-    assert dataclasses.asdict(cfg2) == \
-        dataclasses.asdict(jconfig.setup_model(jcfg)[2])
     x = potential.sample(3, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         lp = flow.log_prob(x)

@@ -35,7 +35,9 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu"))
-print(len(names), bad)
+need = {pkg.__name__ + "." + m for m in (
+    "targets.eam", "targets.phi4", "targets.gff", "apps.polymer")}
+print(len(names), sorted(need - set(names)), bad)
 """
 
 
@@ -43,7 +45,8 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
+    count, missing, bad = out.stdout.strip().split(" ", 2)
+    assert missing == "[]", missing
     assert bad == "[]", bad
     assert int(count) >= 20  # every submodule was imported
 
