@@ -4,7 +4,8 @@
     python3 chip_smoke.py           # funnel line at reduced depth, spline
                                     # line at the bench's depth
     python3 chip_smoke.py --full    # the funnel line at the bench's depth
-                                    # too: 15000 train steps, 1024 draws
+                                    # too: 15000 train steps, 1024 draws,
+                                    # and 256 NUTS draws
 
 Phases, each printing its own line; any failure exits non-zero:
   1. device : the card's name and power limit from nvidia-smi;
@@ -84,6 +85,22 @@ Phases, each printing its own line; any failure exits non-zero:
               training for RNVP_STEPS forward-KL steps on the polymer
               fields, checkpoints included, and the Adam first-moment dtype
               it reports against the memory policy's.
+NUTS and SMC (mcmc/nuts.py, mcmc/smc.py) run inside phases 4 and 9:
+  4b. nuts_funnel: NUTS on the funnel flow that phase 4 trained, bench.py
+              nuts_ess_line's protocol at its width (4096 chains, max depth
+              7): adaptation (warmup 100), then a timed run of NUTS_DRAWS
+              draws (the bench's 256 with --full) and the push; accept,
+              depth, divergence, ESS, gradient calls and n_leapfrog a
+              transition; gates: accept in [0.6, 0.95], divergence < 0.01,
+              the funnel's v band, and no kernel launched;
+  4c. nuts_eight_schools: the Stan/posteriordb eight-schools check of
+              tests/test_nuts_smc.py in float32 (48 chains, 800 + 800,
+              max depth 8), with its bands;
+  9b. smc_phi4: flow-proposal SMC on the flow fe_phi4 trained, at
+              tools/phi4_smc.py's width (8192 particles, 4 mutation steps
+              of L = 8, step 0.1), 3 seeds: each dF/particle within 0.02
+              of the JAX record -1.0565, exact launch counts of all three
+              kernels, and the gap to the port's bar on the same flow.
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -143,11 +160,14 @@ RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
 # integrate_out_v (10 x 500 x 162 rows) and training batch (50 x 162),
 # B = 3 x 2.9115 / 2; Polymer's training batch (40 x 2048) and one column
 # of its 100 draws' sequential inverse (apps.polymer testing), B = 4.
+# smc_phi4's log_prob of 8192 particles x 64 sites and one column of its
+# initial flow.sample.
 PATH_BOUNDS = {"phi4": (-6.0, 6.0) * 2, "fe": (-4.36725, 4.36725) * 2,
                "polymer": (-4.0, 4.0) * 2}
 PATH_RQS = [(6400, 16, False, "phi4"), (6400, 16, True, "phi4"),
             (810000, 32, False, "fe"), (8100, 32, False, "fe"),
-            (81920, 32, False, "polymer"), (100, 32, True, "polymer")]
+            (81920, 32, False, "polymer"), (100, 32, True, "polymer"),
+            (524288, 16, False, "phi4"), (8192, 16, True, "phi4")]
 # tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
 RQS_Y_TOL = dict(atol=2e-5, rtol=1e-5)  # against the float64 plain version
 RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
@@ -187,6 +207,18 @@ PHI4_EPOCHS = 2000            # Phi4.yaml: 4000
 PHI4_RKL_STEPS = 100          # Phi4.yaml: 2000
 POLYMER_EPOCHS = 100          # Polymer.yaml: 15000
 RNVP_STEPS = 20               # Polymer_rnvp.yaml: 15000
+# NUTS on the funnel line's pullback at bench.py nuts_ess_line's width; its
+# 256 draws are cut to 128 (--full runs 256)
+NUTS_CHAINS, NUTS_MAX_DEPTH = 4096, 7
+NUTS_DRAWS, FULL_NUTS_DRAWS = 128, 256
+PROFILED = 3  # NUTS transitions, SMC stages, run under torch.profiler
+# Flow-proposal SMC on the trained Phi4 flow at tools/phi4_smc.py's width:
+# particles, mutation steps, leapfrog steps, step size, seeds
+SMC_PARTICLES, SMC_MUTATIONS, SMC_LEAPFROG, SMC_STEP = 8192, 4, 8, 0.1
+SMC_SEEDS = 3
+# The JAX package's SMC dF/particle on Phi4 (PARITY_RESULTS.md, TPU v5e,
+# 3 seeds: -1.0565 +- 0.0013); each seed's must lie within SMC_GATE
+JAX_SMC_DF, SMC_GATE = -1.0565, 0.02
 
 
 def log(*a):
@@ -560,7 +592,222 @@ def main_path(train_steps, draws, seed, device="cuda"):
         raise AssertionError(
             f"funnel v stats off: mean {stats['v_mean']}, var "
             f"{stats['v_var']} (exact 0, 9)")
-    return launches
+    return launches, flow
+
+
+# ------------------------------------------------------------------- nuts
+def device_idle(fn):
+    """fn() under torch.profiler: its wall ms (synchronised), the device's
+    busy ms (the sum of its kernels' times), idle share 1 - busy / wall,
+    kernel launches, and the five kernels that took the most device time.
+    The profiler's own host cost is in the wall."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [ev for ev in prof.key_averages()
+           if ev.device_type == torch.autograd.DeviceType.CUDA
+           and ev.device_time_total > 0]
+    busy_ms = sum(ev.device_time_total for ev in dev) / 1e3
+    dev.sort(key=lambda ev: -ev.device_time_total)
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms,
+                launches=sum(ev.count for ev in dev),
+                top=[dict(kernel=ev.key[:80], ms=ev.device_time_total / 1e3,
+                          launches=ev.count) for ev in dev[:5]])
+
+
+def no_kernel_moved(label, before):
+    """Raise unless every kernel's launch count is what it was."""
+    if launch_counts() != before:
+        raise AssertionError(f"{label}: launches {before} -> "
+                             f"{launch_counts()}; NUTS launches no kernel")
+
+
+class TransitionLog:
+    """Each NUTS transition's mean n_leapfrog (device scalars, read after
+    the run), and the batched gradient calls of a log-prob it wraps."""
+
+    def __init__(self, logprob):
+        from normalizingflow_tpu_torch.mcmc import nuts
+
+        self.module, self.real = nuts, nuts.nuts_transition
+        self.logprob_fn, self.calls, self.leapfrogs = logprob, 0, []
+
+    def logprob(self, x):
+        self.calls += 1
+        return self.logprob_fn(x)
+
+    def _transition(self, *args, **kwargs):
+        state, info = self.real(*args, **kwargs)
+        self.leapfrogs.append(info.n_leapfrog.float().mean())
+        return state, info
+
+    def __enter__(self):
+        self.module.nuts_transition = self._transition
+        return self
+
+    def __exit__(self, *exc):
+        self.module.nuts_transition = self.real
+
+    def per_transition(self, transitions):
+        """(batched gradient calls, mean n_leapfrog) a transition; the
+        first call is run_nuts' hmc_init."""
+        return ((self.calls - 1) / transitions,
+                float(torch.stack(self.leapfrogs).mean()))
+
+
+def nuts_funnel(flow, draws, seed, device="cuda"):
+    """NUTS on the funnel line's NeuTra pullback, bench.py's nuts_ess_line
+    protocol: an adaptation run (warmup 100, 2 draws, step 0.5, max depth
+    7, 4096 chains from prior draws), then a separately timed sampling run
+    (no warmup, the adapted step and mass) with the push to data space.
+    Gates: finite, accept in [0.6, 0.95], divergence < 0.01, the funnel's v
+    band, and no kernel launched (NUTS selects by multinomial sampling, and
+    the RealNVP flow has no spline)."""
+    from normalizingflow_tpu_torch.estimators.ess import bulk_ess_per_dim
+    from normalizingflow_tpu_torch.mcmc import (
+        padded_length,
+        pullback_logprob_batched,
+        push_to_data,
+        run_nuts,
+    )
+    from normalizingflow_tpu_torch.targets import NealsFunnel
+
+    flow.requires_grad_(False)  # the gradient is taken in z only
+    gen = torch.Generator(device=device).manual_seed(seed + 21)
+    pullback = pullback_logprob_batched(flow, NealsFunnel(DIM))
+    reset_launch_counts()
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    adapt = run_nuts(gen, pullback, flow.prior.sample(NUTS_CHAINS,
+                                                      generator=gen),
+                     2, num_warmup=WARMUP, step_size=0.5,
+                     max_depth=NUTS_MAX_DEPTH, device=device)
+    torch.cuda.synchronize()
+    adapt_s = time.perf_counter() - t0
+
+    with TransitionLog(pullback) as tlog:
+        t0 = time.perf_counter()
+        res = run_nuts(gen, tlog.logprob, adapt.final_state.position, draws,
+                       num_warmup=0, step_size=float(adapt.step_size),
+                       max_depth=NUTS_MAX_DEPTH,
+                       inv_mass_diag=adapt.inv_mass_diag, device=device)
+        xs = push_to_data(flow, res.samples)
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+    no_kernel_moved("nuts_funnel", before)
+    transitions = padded_length(draws)
+    grads, leapfrogs = tlog.per_transition(transitions)
+    profiled = device_idle(lambda: run_nuts(
+        gen, pullback, res.final_state.position, PROFILED, num_warmup=0,
+        step_size=float(adapt.step_size), max_depth=NUTS_MAX_DEPTH,
+        inv_mass_diag=adapt.inv_mass_diag, device=device))
+
+    bulk_x = bulk_ess_per_dim(xs)
+    bulk_x2 = bulk_ess_per_dim(xs * xs)
+    ess_min = float(torch.minimum(bulk_x.min(), bulk_x2.min()))
+    v = xs[..., 0]
+    stats = dict(
+        chains=NUTS_CHAINS, warmup=WARMUP, draws=draws,
+        max_depth=NUTS_MAX_DEPTH, adapt_s=adapt_s,
+        step_size=float(adapt.step_size), accept=float(res.accept_rate),
+        mean_depth=float(res.mean_depth),
+        divergence_rate=float(res.divergence_rate),
+        v_mean=float(v.mean()), v_var=float(v.var(correction=0)),
+        ess_min_bulk_x=float(bulk_x.min()),
+        ess_min_bulk_x2=float(bulk_x2.min()), ess_min=ess_min,
+        sample_s=sample_s, ess_per_s=ess_min / sample_s,
+        transitions=transitions,
+        ms_per_transition=sample_s * 1e3 / transitions,
+        gradient_calls_per_transition=grads,
+        mean_n_leapfrog=leapfrogs,
+        profiled=dict(transitions=PROFILED, **profiled),
+        tpu_record=dict(accept=0.794, mean_depth=2.5, chains=4096,
+                        max_depth=7))
+    log("nuts_funnel: " + json.dumps(stats))
+    if not bool(torch.isfinite(xs).all()) or not all(
+            math.isfinite(x) for x in stats.values()
+            if isinstance(x, float)):
+        raise AssertionError("nuts_funnel: non-finite output")
+    if not 0.6 <= stats["accept"] <= 0.95:
+        raise AssertionError(f"nuts_funnel: accept {stats['accept']}")
+    if not stats["divergence_rate"] < 0.01:
+        raise AssertionError(
+            f"nuts_funnel: divergence rate {stats['divergence_rate']}")
+    if abs(stats["v_mean"]) >= 0.15 or abs(stats["v_var"] - 9.0) >= 0.9:
+        raise AssertionError(
+            f"nuts_funnel: v mean {stats['v_mean']}, var {stats['v_var']} "
+            f"(exact 0, 9)")
+    return launch_counts()
+
+
+EIGHT_Y = [28.0, 8.0, -3.0, 7.0, -1.0, 1.0, 18.0, 12.0]
+EIGHT_SIGMA = [15.0, 10.0, 16.0, 11.0, 9.0, 11.0, 10.0, 18.0]
+
+
+def eight_schools_logprob(x):
+    """Non-centered eight schools, batched: mu ~ N(0, 5), tau ~
+    HalfCauchy(5) through log_tau with its Jacobian, z ~ N(0, 1)^8, y ~
+    N(mu + tau * z, sigma)."""
+    y = torch.tensor(EIGHT_Y, dtype=x.dtype, device=x.device)
+    sig = torch.tensor(EIGHT_SIGMA, dtype=x.dtype, device=x.device)
+    mu, log_tau, z = x[:, 0], x[:, 1], x[:, 2:]
+    tau = torch.exp(log_tau)
+    lp = -0.5 * (mu / 5.0) ** 2
+    lp = lp + (math.log(2.0 / (math.pi * 5.0))
+               - torch.log1p((tau / 5.0) ** 2) + log_tau)
+    lp = lp - 0.5 * torch.sum(z * z, dim=-1)
+    return lp + torch.sum(
+        -0.5 * ((y - (mu[:, None] + tau[:, None] * z)) / sig) ** 2, dim=-1)
+
+
+def nuts_eight_schools(seed, device="cuda"):
+    """tests/test_nuts_smc.py's Stan/posteriordb check on the card in
+    float32: 48 chains, 800 warmup + 800 draws, max depth 8, step 0.1, and
+    its bands."""
+    from normalizingflow_tpu_torch.mcmc import padded_length, run_nuts
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    init = 0.1 * torch.randn(48, 10, generator=gen, device=device)
+    reset_launch_counts()
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_nuts(gen, eight_schools_logprob, init, 800, num_warmup=800,
+                   step_size=0.1, max_depth=8, device=device)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    no_kernel_moved("nuts_eight_schools", before)
+    s = res.samples.reshape(-1, 10).double()
+    mu, tau = s[:, 0], torch.exp(s[:, 1])
+    theta1 = s[:, 0] + tau * s[:, 2]
+    got = {"mu mean": float(mu.mean()), "mu sd": float(mu.std(correction=0)),
+           "tau mean": float(tau.mean()),
+           "tau sd": float(tau.std(correction=0)),
+           "theta1 mean": float(theta1.mean()),
+           "mean depth": float(res.mean_depth),
+           "divergence": float(res.divergence_rate),
+           "accept": float(res.accept_rate)}
+    bands = {"mu mean": (3.8, 5.0), "mu sd": (2.6, 4.0),
+             "tau mean": (2.8, 4.4), "tau sd": (2.3, 4.1),
+             "theta1 mean": (5.35, 7.15), "mean depth": (1.8, 4.0),
+             "divergence": (0.0, 0.02), "accept": (0.7, 0.92)}
+    log("nuts_eight_schools: " + json.dumps(dict(
+        seconds=seconds,
+        ms_per_transition=seconds * 1e3 / (2 * padded_length(800)),
+        step_size=float(res.step_size), **got, bands=bands)))
+    off = {k: v for k, v in got.items()
+           if not bands[k][0] <= v <= bands[k][1]}
+    if off or not bool(torch.isfinite(s).all()):
+        raise AssertionError(f"nuts_eight_schools outside the Stan bands: "
+                             f"{off}")
+    return launch_counts()
 
 
 # -------------------------------------------------------------------- rqs
@@ -1232,7 +1479,7 @@ def mbar_study(out, n_particles, kT, label, tol):
 
 
 def fe_cli_phase(label, name, seed, nframes, train=None, mbar_tol=None,
-                 record=None):
+                 record=None, then=None):
     """configs/<name>.yaml through apps.sample_data (`nframes` frames),
     apps.train (its train_parameters overridden by `train`), apps.test
     (with relaxation for the particle systems) and apps.fe testing, on a
@@ -1246,7 +1493,8 @@ def fe_cli_phase(label, name, seed, nframes, train=None, mbar_tol=None,
     RQS kernels against the float64 plain versions, and a round trip.
     Logs the phase's statistics (with `record`, the JAX package's) and
     returns (stats, launches by kernel, max |err| of the forward checks,
-    max |err| of the VJP checks)."""
+    max |err| of the VJP checks). `then(cfg)`, if given, runs last, while
+    the trained model is still on disk."""
     import tempfile
 
     import numpy as np
@@ -1339,6 +1587,8 @@ def fe_cli_phase(label, name, seed, nframes, train=None, mbar_tol=None,
         rt_z, rt_ld = round_trip(flow, z, label)
         n_params = sum(p.numel() for p in flow.parameters())
         del flow
+        if then is not None:
+            then(cfg)
 
     fine_s = fine.seconds["rkl_finetune"]
     stats = dict(
@@ -1402,19 +1652,118 @@ def fe_fe400k_phase(seed):
 
 def fe_phi4_phase(seed):
     """configs/Phi4.yaml: HMC data, forward KL then the reverse-KL
-    fine-tune, test."""
+    fine-tune, test; then smc_phi4 on the trained flow. Returns (fe_phi4's
+    launches and errors, smc_phi4's launches)."""
     depth_cut("fe_phi4", "train epochs", PHI4_EPOCHS, 4000)
     depth_cut("fe_phi4", "rkl_finetune steps", PHI4_RKL_STEPS, 2000)
+    smc = {}
     stats, launches, err, err_vjp = fe_cli_phase(
         "fe_phi4", "Phi4", seed, SLICE_FRAMES,
         train={"max_epochs": PHI4_EPOCHS,
                "rkl_finetune_steps": PHI4_RKL_STEPS},
-        record="bar -1.059406 emus -1.059407 md -1.110401 nf -0.955755")
+        record="bar -1.059406 emus -1.059407 md -1.110401 nf -0.955755",
+        then=lambda cfg: smc.update(smc_phi4(cfg)))
     gap = abs(stats["emus"] - stats["bar"])
     if gap > 0.01:
         raise AssertionError(f"fe_phi4: |emus - bar| = {gap} > 0.01")
     bar_gate("fe_phi4", stats, "Phi4")
-    return dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp)
+    log(f"smc_phi4: mean dF/particle {smc['mean']:.6f}, the port's bar on "
+        f"the same flow {stats['bar']:.6f}, gap "
+        f"{smc['mean'] - stats['bar']:+.6f}")
+    return (dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp),
+            smc["launches"])
+
+
+def phi4_smc(cfg, n_particles, seeds):
+    """tools/phi4_smc.py's estimate on the trained flow of `cfg`: for each
+    seed, flow_smc with the flow as proposal (SMC_MUTATIONS steps of
+    SMC_LEAPFROG, step SMC_STEP); dF/particle = -log Z / (nparticles x
+    dim), the flow density being normalized and kT 1. Returns a dict a
+    seed."""
+    from normalizingflow_tpu_torch.apps.test import load_trained
+    from normalizingflow_tpu_torch.mcmc import flow_smc
+
+    flow, potential, cfg = load_trained(cfg)
+    device = next(flow.parameters()).device
+    npart = cfg.dataset.nparticles * cfg.dataset.dim
+    runs = []
+    for seed in seeds:
+        gen = torch.Generator(device=device).manual_seed(1000 + seed)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        res = flow_smc(gen, flow, potential, n_particles,
+                       n_mutation_steps=SMC_MUTATIONS,
+                       num_leapfrog=SMC_LEAPFROG, step_size=SMC_STEP,
+                       device=device)
+        log_z = float(res.log_evidence)  # waits for the device
+        seconds = time.perf_counter() - t0
+        runs.append(dict(
+            seed=seed, log_z=log_z, stages=res.n_stages,
+            final_accept=float(res.final_accept), df=-log_z / npart,
+            seconds=seconds, s_per_stage=seconds / res.n_stages,
+            finite=bool(torch.isfinite(res.particles).all())))
+    return runs
+
+
+def smc_profile(cfg):
+    """device_idle of PROFILED stages of run_smc from SMC_PARTICLES draws
+    of the trained flow (the draws made outside the profile)."""
+    from normalizingflow_tpu_torch.apps.test import load_trained
+    from normalizingflow_tpu_torch.mcmc import run_smc
+
+    flow, potential, _ = load_trained(cfg)
+    flow.requires_grad_(False)
+    gen = torch.Generator(device=next(flow.parameters()).device)
+    gen.manual_seed(999)
+    with torch.no_grad():
+        x0 = flow.sample(SMC_PARTICLES, generator=gen)[0]
+    out = {}
+    prof = device_idle(lambda: out.update(res=run_smc(
+        gen, x0, flow.log_prob, potential.log_prob,
+        n_mutation_steps=SMC_MUTATIONS, num_leapfrog=SMC_LEAPFROG,
+        step_size=SMC_STEP, max_stages=PROFILED, device=x0.device)))
+    return dict(stages=out["res"].n_stages, **prof)
+
+
+def smc_phi4(cfg):
+    """Flow-proposal SMC on the flow fe_phi4 trained, at tools/phi4_smc.py's
+    width, SMC_SEEDS seeds. Gates: finite; each seed's dF/particle within
+    SMC_GATE of the JAX record; exact launch counts (a seed: the initial
+    flow.sample inverts column by column, one RQS launch a coordinate a
+    layer; a stage evaluates the flow's log_prob once without gradient,
+    then 1 + SMC_MUTATIONS x SMC_LEAPFROG times with its VJP, and launches
+    the accept kernel once a mutation step)."""
+    layers, dim = cfg.flow.nlayers, cfg.dataset.nparticles * cfg.dataset.dim
+    grads = 1 + SMC_MUTATIONS * SMC_LEAPFROG
+    reset_launch_counts()
+    runs = phi4_smc(cfg, SMC_PARTICLES, range(SMC_SEEDS))
+    launches = launch_counts()
+    stages = sum(r["stages"] for r in runs)
+    want = dict(accept_select=SMC_MUTATIONS * stages, accept_unfused=0,
+                rqs=layers * (SMC_SEEDS * dim + stages * (1 + grads)),
+                rqs_vjp=layers * stages * grads)
+    dfs = [r["df"] for r in runs]
+    mean = statistics.fmean(dfs)
+    std = statistics.pstdev(dfs)
+    profiled = smc_profile(cfg)
+    log("smc_phi4: " + json.dumps(dict(
+        particles=SMC_PARTICLES, mutation_steps=SMC_MUTATIONS,
+        leapfrog=SMC_LEAPFROG, step_size=SMC_STEP, runs=runs, mean=mean,
+        std=std, launches=launches, profiled=profiled,
+        jax_record=f"{JAX_SMC_DF} +- 0.0013 over 3 seeds")))
+    if launches != want:
+        raise AssertionError(f"smc_phi4: launches {launches}, the code "
+                             f"implies {want}")
+    for r in runs:
+        if not (r["finite"] and math.isfinite(r["df"])
+                and math.isfinite(r["final_accept"])):
+            raise AssertionError(f"smc_phi4: non-finite output {r}")
+        if abs(r["df"] - JAX_SMC_DF) > SMC_GATE:
+            raise AssertionError(f"smc_phi4: seed {r['seed']} dF/particle "
+                                 f"{r['df']} is more than {SMC_GATE} from "
+                                 f"the JAX record {JAX_SMC_DF}")
+    return dict(mean=mean, std=std, launches=launches)
 
 
 def analytic_phase(label, name, epochs, record=None):
@@ -1647,7 +1996,8 @@ def polymer_rnvp_phase():
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full", action="store_true",
-                    help="the bench's depth: 15000 train steps, 1024 draws")
+                    help="the bench's depth: 15000 train steps, 1024 draws, "
+                    "256 NUTS draws")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1692,7 +2042,12 @@ def main(argv=None):
                           else (REDUCED_TRAIN_STEPS, REDUCED_DRAWS))
     depth_cut("main", "train steps", train_steps, FULL_TRAIN_STEPS)
     depth_cut("main", "draws", draws, FULL_DRAWS)
-    funnel = main_path(train_steps, draws, args.seed)
+    funnel, flow = main_path(train_steps, draws, args.seed)
+    nuts_draws = FULL_NUTS_DRAWS if args.full else NUTS_DRAWS
+    depth_cut("nuts_funnel", "draws", nuts_draws, FULL_NUTS_DRAWS)
+    nuts = dict(nuts_funnel=nuts_funnel(flow, nuts_draws, args.seed))
+    del flow
+    nuts["nuts_eight_schools"] = nuts_eight_schools(args.seed)
     torch.cuda.empty_cache()
     spline = spline_line(args.seed)
     torch.cuda.empty_cache()
@@ -1702,7 +2057,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     fe_fe400k = fe_fe400k_phase(args.seed)
     torch.cuda.empty_cache()
-    fe_phi4 = fe_phi4_phase(args.seed)
+    fe_phi4, smc = fe_phi4_phase(args.seed)
     torch.cuda.empty_cache()
     poly = polymer_phase(args.seed)
     torch.cuda.empty_cache()
@@ -1723,10 +2078,10 @@ def main(argv=None):
                 for key, r in checks.items()])
 
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
-                       polymer_rnvp=rnvp)
+                       polymer_rnvp=rnvp, **nuts, smc_phi4=smc)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
-                   for n, d in KERNEL_SHAPES[-2:]}
+                   for n, d in KERNEL_SHAPES[-2:] + [(SMC_PARTICLES, DIM)]}
 
     main_shape = (SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS, True, "sym")
     kernels = [

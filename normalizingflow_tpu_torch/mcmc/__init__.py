@@ -27,12 +27,26 @@ from .neutra import (
     pullback_logprob_batched,
     push_to_data,
 )
+from .nuts import (
+    NUTSInfo,
+    NUTSResult,
+    TransitionDraws,
+    nuts_transition,
+    run_nuts,
+)
 from .relaxation import (
     RelaxationResult,
     collect_hmc_data,
     integrate_out_v,
     metropolize,
     relaxation_step,
+)
+from .smc import (
+    SMCResult,
+    ess_from_log_weights,
+    flow_smc,
+    run_smc,
+    systematic_resampling,
 )
 
 __all__ = [
@@ -42,7 +56,11 @@ __all__ = [
     "HMCInfo", "HMCResult", "HMCState", "batched_lp_grad", "hmc_init",
     "hmc_transition", "leapfrog", "padded_length", "run_hmc",
     "transition_draws",
+    "NUTSInfo", "NUTSResult", "TransitionDraws", "nuts_transition",
+    "run_nuts",
     "NeutraResult", "neutra_hmc", "pullback_logprob_batched", "push_to_data",
     "RelaxationResult", "collect_hmc_data", "integrate_out_v", "metropolize",
     "relaxation_step",
+    "SMCResult", "ess_from_log_weights", "flow_smc", "run_smc",
+    "systematic_resampling",
 ]

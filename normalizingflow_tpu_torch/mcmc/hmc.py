@@ -157,6 +157,43 @@ def padded_length(length, chunk=128):
     return -(-length // chunk) * chunk
 
 
+def draw_source(draws, make):
+    """A function returning one transition's draws: the next item of the
+    iterable `draws`, or, without it, a fresh `make()`."""
+    if draws is None:
+        return make
+    draws = iter(draws)
+    return lambda: next(draws)
+
+
+def warmup(step, state, num_warmup, step_size, inv_mass_diag,
+           target_accept):
+    """Stan-style warmup of `padded_length(num_warmup)` transitions
+    `step(state, eps, inv_mass) -> (state, info)`: dual averaging of the
+    step size on the chain-mean `info.accept_prob`, and the windowed Welford
+    mass. Pad transitions past num_warmup adapt the step size but do no
+    window bookkeeping, as in JAX. Returns (state, the averaged step size,
+    the inverse mass)."""
+    dtype, device = state.position.dtype, state.position.device
+    dim = state.position.shape[1]
+    in_window, window_end = warmup_schedule(num_warmup)
+    da_state = da_init(torch.as_tensor(step_size, dtype=dtype,
+                                       device=device))
+    wf_state = welford_init(dim, dtype, device)
+    for i in range(padded_length(num_warmup)):
+        state, info = step(state, da_step_size(da_state), inv_mass_diag)
+        da_state = da_update(da_state, torch.mean(info.accept_prob),
+                             target_accept)
+        if i < num_warmup and in_window[i]:
+            wf_state = welford_update_batch(wf_state, state.position)
+        if i < num_warmup and window_end[i]:
+            inv_mass_diag = welford_variance(wf_state)
+            # restart step-size averaging around the current iterate
+            da_state = da_init(da_step_size(da_state))
+            wf_state = welford_init(dim, dtype, device)
+    return state, da_step_size(da_state, averaged=True), inv_mass_diag
+
+
 def run_hmc(generator, logprob_fn, init_position, num_samples,
             num_warmup=500, step_size=0.1, num_leapfrog=10,
             target_accept=0.8, thin=1, inv_mass_diag=None, step_jitter=0.2,
@@ -174,15 +211,8 @@ def run_hmc(generator, logprob_fn, init_position, num_samples,
     dtype = init_position.dtype
     if inv_mass_diag is None:
         inv_mass_diag = torch.ones(dim, dtype=dtype, device=device)
-    if draws is None:
-        def next_draws():
-            return transition_draws(generator, chains, dim, dtype, device)
-    else:
-        draws = iter(draws)
-
-        def next_draws():
-            return next(draws)
-
+    next_draws = draw_source(draws, lambda: transition_draws(
+        generator, chains, dim, dtype, device))
     lp_grad = batched_lp_grad(logprob_fn)
     # The run owns its state: every transition updates it in place.
     state = hmc_init(lp_grad, init_position.clone(
@@ -193,26 +223,9 @@ def run_hmc(generator, logprob_fn, init_position, num_samples,
                               num_leapfrog, inv_mass, step_jitter,
                               inplace=True)
 
-    # ------------------------------------------------------------- warmup
     if num_warmup > 0:
-        in_window, window_end = warmup_schedule(num_warmup)
-        da_state = da_init(torch.as_tensor(step_size, dtype=dtype,
-                                           device=device))
-        wf_state = welford_init(dim, dtype, device)
-        # Pad transitions past num_warmup are plain transitions with step
-        # adaptation but no window bookkeeping, as in JAX.
-        for i in range(padded_length(num_warmup)):
-            state, info = step(state, da_step_size(da_state), inv_mass_diag)
-            da_state = da_update(da_state, torch.mean(info.accept_prob),
-                                 target_accept)
-            if i < num_warmup and in_window[i]:
-                wf_state = welford_update_batch(wf_state, state.position)
-            if i < num_warmup and window_end[i]:
-                inv_mass_diag = welford_variance(wf_state)
-                # restart step-size averaging around the current iterate
-                da_state = da_init(da_step_size(da_state))
-                wf_state = welford_init(dim, dtype, device)
-        eps_final = da_step_size(da_state, averaged=True)
+        state, eps_final, inv_mass_diag = warmup(
+            step, state, num_warmup, step_size, inv_mass_diag, target_accept)
     else:
         eps_final = torch.as_tensor(step_size, dtype=dtype, device=device)
 

@@ -16,8 +16,11 @@ from normalizingflow_tpu_torch.config import (
 )
 from normalizingflow_tpu_torch.mcmc import (
     collect_hmc_data,
+    flow_smc,
     neutra_hmc,
     run_hmc,
+    run_nuts,
+    run_smc,
 )
 from normalizingflow_tpu_torch.targets import NealsFunnel
 from normalizingflow_tpu_torch.train.fused import train_flow_fused
@@ -36,7 +39,8 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu"))
 need = {pkg.__name__ + "." + m for m in (
-    "targets.eam", "targets.phi4", "targets.gff", "apps.polymer")}
+    "targets.eam", "targets.phi4", "targets.gff", "apps.polymer",
+    "mcmc.nuts", "mcmc.smc")}
 print(len(names), sorted(need - set(names)), bad)
 """
 
@@ -66,6 +70,12 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         neutra_hmc(gen, torch.nn.Linear(2, 2), NealsFunnel(2), 4, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_nuts(gen, lambda x: -0.5 * (x * x).sum(-1), torch.zeros(4, 2),
+                 2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_smc(gen, torch.zeros(4, 2), NealsFunnel(2).log_prob,
+                NealsFunnel(2).log_prob)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         train(torch.nn.Linear(2, 2), NealsFunnel(2), 1, 4, gen)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_flow_fused(torch.nn.Linear(2, 2), gen, NealsFunnel(2))
@@ -73,6 +83,8 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
     flow.sample = lambda n, generator=None, z=None: (torch.zeros(n, 2),) * 3
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         collect_hmc_data(flow, NealsFunnel(2), n_chains=2)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        flow_smc(gen, flow, NealsFunnel(2), 4)
 
 
 @pytest.mark.parametrize("device", ["tpu", "cuda", "cuda:1", None])
@@ -95,3 +107,13 @@ def test_entry_points_refuse_tensors_on_another_device():
     with pytest.raises(ValueError, match="expected"):
         run_hmc(torch.Generator(), lambda x: -0.5 * (x * x).sum(-1),
                 torch.zeros(4, 2, device="meta"), 2, device="cpu")
+
+
+def test_nuts_and_smc_refuse_tensors_on_another_device():
+    with pytest.raises(ValueError, match="expected"):
+        run_nuts(torch.Generator(), lambda x: -0.5 * (x * x).sum(-1),
+                 torch.zeros(4, 2, device="meta"), 2, device="cpu")
+    with pytest.raises(ValueError, match="expected"):
+        run_smc(torch.Generator(), torch.zeros(4, 2, device="meta"),
+                NealsFunnel(2).log_prob, NealsFunnel(2).log_prob,
+                device="cpu")
