@@ -101,6 +101,25 @@ NUTS and SMC (mcmc/nuts.py, mcmc/smc.py) run inside phases 4 and 9:
               of L = 8, step 0.1), 3 seeds: each dF/particle within 0.02
               of the JAX record -1.0565, exact launch counts of all three
               kernels, and the gap to the port's bar on the same flow.
+The multi-device layer (parallel/) and the last modules run after them:
+ 12. parallel: the sharded paths on the flows that phases 4 and 9 trained.
+              First NCCL at world size 1 in this process (a file:// store),
+              then two gloo ranks on the one card (NCCL refuses two ranks
+              on one GPU), spawned with the kernels already built. Each
+              runs run_smc_sharded on the Phi4 flow (smc_phi4's width,
+              8192 particles, its proposal sampled 4096 rows a call),
+              make_sharded_train_step (20 steps at Phi4's batch of 100) and
+              run_hmc_sharded on the funnel pullback (8192 chains: 16 + 20
+              transitions held chain by chain to the unsharded run, then
+              warmup 100 + 128 draws under the funnel's gates), every rank
+              on its rows of one global input and draw stream. Gates (see
+              par_compare): exact launch counts, results identical on every
+              rank, SMC's stages and log Z and the parameters against the
+              unsharded runs, dF/particle within 0.02 of the JAX record.
+              Then utils.profiling.trace around two funnel transitions (the
+              trace names the accept kernel and the matmuls), and Planar,
+              Radial and OneByOneConv trained on Gaussian_rnvp.yaml (loss
+              decreasing; Radial and OneByOneConv round-trip).
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -114,6 +133,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -131,9 +151,10 @@ REDUCED_TRAIN_STEPS, REDUCED_DRAWS = 3000, 256
 # (256, 96) and (8, 96): apps.sample_data's 256 chains and the HMC mixer's
 # 8, at the LJ config's 96 coordinates; (256, 162) and (256, 64): the data
 # chains of Fe_400K (162 is no multiple of 4: scalar loads, 3 units a lane)
-# and of Phi4
+# and of Phi4; (4096, 64): a rank's chains and particles in the parallel
+# phase's two-rank run
 KERNEL_SHAPES = [(8192, 64), (4096, 96), (1056, 64), (300, 2048), (96, 6),
-                 (256, 96), (8, 96), (256, 162), (256, 64)]
+                 (256, 96), (8, 96), (256, 162), (256, 64), (4096, 64)]
 # accept kernel, checked too: rows wider than a block's registers (float
 # loads, 1030 > 256 threads x 4 units), which stream their tail
 WIDE_SHAPES = [(64, 1030)]
@@ -161,13 +182,17 @@ RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
 # B = 3 x 2.9115 / 2; Polymer's training batch (40 x 2048) and one column
 # of its 100 draws' sequential inverse (apps.polymer testing), B = 4.
 # smc_phi4's log_prob of 8192 particles x 64 sites and one column of its
-# initial flow.sample.
+# initial flow.sample; in the parallel phase's two-rank run, a rank's
+# log_prob of 4096 particles, its training batch of 50 x 64 and one column
+# of its 4096-row sample.
 PATH_BOUNDS = {"phi4": (-6.0, 6.0) * 2, "fe": (-4.36725, 4.36725) * 2,
                "polymer": (-4.0, 4.0) * 2}
 PATH_RQS = [(6400, 16, False, "phi4"), (6400, 16, True, "phi4"),
             (810000, 32, False, "fe"), (8100, 32, False, "fe"),
             (81920, 32, False, "polymer"), (100, 32, True, "polymer"),
-            (524288, 16, False, "phi4"), (8192, 16, True, "phi4")]
+            (524288, 16, False, "phi4"), (8192, 16, True, "phi4"),
+            (262144, 16, False, "phi4"), (3200, 16, False, "phi4"),
+            (4096, 16, True, "phi4")]
 # tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
 RQS_Y_TOL = dict(atol=2e-5, rtol=1e-5)  # against the float64 plain version
 RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
@@ -219,6 +244,33 @@ SMC_SEEDS = 3
 # The JAX package's SMC dF/particle on Phi4 (PARITY_RESULTS.md, TPU v5e,
 # 3 seeds: -1.0565 +- 0.0013); each seed's must lie within SMC_GATE
 JAX_SMC_DF, SMC_GATE = -1.0565, 0.02
+# The parallel phase (parallel/ on torch.distributed): NCCL at world size
+# 1, then PAR_WORLD gloo ranks on the one card. SMC on the trained Phi4
+# flow at smc_phi4's width, its proposal sampled in blocks of PAR_BLOCK
+# rows (a rank's share at two ranks); PAR_TRAIN_STEPS training steps at
+# Phi4's batch; the funnel pullback at CHAINS chains: a short run
+# (PAR_SHORT warmup and draws) held chain by chain to the unsharded run,
+# then WARMUP + PAR_HMC_DRAWS under the funnel's gates.
+PAR_WORLD, PAR_BLOCK, PAR_TRAIN_STEPS, PAR_BATCH = 2, 4096, 20, 100
+PAR_SHORT, PAR_HMC_DRAWS = (16, 20), 128
+# Gates against the unsharded runs. In float32 one ulp anywhere grows: a
+# chain mean summed in another order than torch.mean's moves the step
+# size, accept tests at the threshold flip, SMC's tempering follows other
+# particles (on a CPU rehearsal, where a matmul rounds a row by the batch
+# it is in, two ranks parted from one by a stage and 2% in log Z). So the
+# references sum each chain mean over the ranks' blocks of rows in rank
+# order (PartsMesh), the proposal is sampled in the ranks' blocks, and the
+# training reference sums the gradient over the ranks' halves, as the
+# all-reduce does: Adam's first update is +-lr whatever the gradient's
+# size, so a whole-batch reference parts by ~lr on every near-zero
+# gradient entry (20 steps on the CPU: 0.0045). The plain torch.mean SMC
+# run is reported beside.
+PAR_LOGZ_RTOL, PAR_HMC_RTOL, PAR_PARAM_TOL = 1e-5, 1e-5, 1e-5
+PAR_CHAIN_TOL, PAR_CHAIN_SHARE = 1e-3, 1e-3
+# Planar, Radial and OneByOneConv (InvertibleLinear) on Gaussian_rnvp.yaml:
+# two training chunks of 500
+ELEMENTARY = ("Planar", "Radial", "OneByOneConv")
+ELEMENTARY_EPOCHS = 1000
 
 
 def log(*a):
@@ -600,7 +652,9 @@ def device_idle(fn):
     """fn() under torch.profiler: its wall ms (synchronised), the device's
     busy ms (the sum of its kernels' times), idle share 1 - busy / wall,
     kernel launches, and the five kernels that took the most device time.
-    The profiler's own host cost is in the wall."""
+    The profiler's own host cost is in the wall. A user annotation's range
+    on the device (torch.optim's `Optimizer.step#...`) is no kernel and
+    is left out."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -611,7 +665,8 @@ def device_idle(fn):
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [ev for ev in prof.key_averages()
            if ev.device_type == torch.autograd.DeviceType.CUDA
-           and ev.device_time_total > 0]
+           and ev.device_time_total > 0
+           and not getattr(ev, "is_user_annotation", False)]
     busy_ms = sum(ev.device_time_total for ev in dev) / 1e3
     dev.sort(key=lambda ev: -ev.device_time_total)
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
@@ -1265,11 +1320,11 @@ def reset_launch_counts():
         fn.launches = 0
 
 
-def fe_config(name, tmp, train=None):
+def fe_config(name, tmp, train=None, flow=None):
     """configs/<name>.yaml with its data and output paths rewritten into
     `tmp`, its lattice and EAM table paths made absolute, and the entries
-    of `train` (depth cuts) over its train_parameters; returns the copy's
-    path."""
+    of `train` (depth cuts) over its train_parameters and of `flow` over
+    its flow; returns the copy's path."""
     import yaml
 
     raw = yaml.safe_load((ROOT / "configs" / f"{name}.yaml").read_text())
@@ -1284,6 +1339,7 @@ def fe_config(name, tmp, train=None):
     raw["output"] = {k: f"{tmp / k}/" for k in (
         "training_dir", "testing_dir", "model_dir", "best_model_dir")}
     raw["train_parameters"].update(train or {})
+    raw["flow"].update(flow or {})
     path = tmp / f"{name}.yaml"
     path.write_text(yaml.safe_dump(raw))
     return path
@@ -1650,19 +1706,41 @@ def fe_fe400k_phase(seed):
     return dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp)
 
 
-def fe_phi4_phase(seed):
+def keep_phi4(cfg, keep):
+    """The trained Phi4 flow's weights and training frames, copied into
+    `keep` for the parallel phase; returns the config pointing there."""
+    import dataclasses
+    import shutil
+
+    from normalizingflow_tpu_torch.apps.test import load_trained
+
+    flow, _, _ = load_trained(cfg)
+    torch.save(flow.state_dict(), keep / "phi4.pt")
+    shutil.copyfile(cfg.dataset.training_data, keep / "phi4_train.npy")
+    return dataclasses.replace(cfg, dataset=dataclasses.replace(
+        cfg.dataset, training_data=str(keep / "phi4_train.npy"),
+        testing_data=None))
+
+
+def fe_phi4_phase(seed, keep):
     """configs/Phi4.yaml: HMC data, forward KL then the reverse-KL
-    fine-tune, test; then smc_phi4 on the trained flow. Returns (fe_phi4's
-    launches and errors, smc_phi4's launches)."""
+    fine-tune, test; then smc_phi4 on the trained flow, which is kept in
+    `keep`. Returns (fe_phi4's launches and errors, smc_phi4's launches,
+    the kept config)."""
     depth_cut("fe_phi4", "train epochs", PHI4_EPOCHS, 4000)
     depth_cut("fe_phi4", "rkl_finetune steps", PHI4_RKL_STEPS, 2000)
     smc = {}
+
+    def then(cfg):
+        smc.update(smc_phi4(cfg))
+        smc["cfg"] = keep_phi4(cfg, keep)
+
     stats, launches, err, err_vjp = fe_cli_phase(
         "fe_phi4", "Phi4", seed, SLICE_FRAMES,
         train={"max_epochs": PHI4_EPOCHS,
                "rkl_finetune_steps": PHI4_RKL_STEPS},
         record="bar -1.059406 emus -1.059407 md -1.110401 nf -0.955755",
-        then=lambda cfg: smc.update(smc_phi4(cfg)))
+        then=then)
     gap = abs(stats["emus"] - stats["bar"])
     if gap > 0.01:
         raise AssertionError(f"fe_phi4: |emus - bar| = {gap} > 0.01")
@@ -1671,7 +1749,7 @@ def fe_phi4_phase(seed):
         f"the same flow {stats['bar']:.6f}, gap "
         f"{smc['mean'] - stats['bar']:+.6f}")
     return (dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp),
-            smc["launches"])
+            smc["launches"], smc["cfg"])
 
 
 def phi4_smc(cfg, n_particles, seeds):
@@ -1993,6 +2071,492 @@ def polymer_rnvp_phase():
     return stats["launches"]
 
 
+# ------------------------------------------------------------- parallel
+def smc_stream(gen, n, dim, dtype, device):
+    """run_smc's draws from `gen` for n particles, in its own order."""
+    from normalizingflow_tpu_torch.mcmc.smc import generator_draws
+
+    return generator_draws(gen, n, dim, SMC_MUTATIONS, dtype, device)
+
+
+def hmc_stream(gen, n, dim, dtype, device):
+    """run_hmc's draws from `gen`: one transition_draws a transition."""
+    from normalizingflow_tpu_torch.mcmc import transition_draws
+
+    while True:
+        yield transition_draws(gen, n, dim, dtype, device)
+
+
+def rows_of(stream, rows):
+    """Each draw of a global stream cut to a rank's rows (u0 whole)."""
+    for d in stream:
+        yield d if isinstance(d, torch.Tensor) else tuple(t[rows] for t in d)
+
+
+def phi4_model(cfg, keep, device):
+    """The Phi4 flow that fe_phi4 trained (its weights kept in `keep`),
+    with its target."""
+    from normalizingflow_tpu_torch.config import setup_model
+
+    flow, potential, _ = setup_model(cfg, device=device)
+    flow.load_state_dict(torch.load(keep / "phi4.pt", map_location=device))
+    return flow, potential
+
+
+def funnel_model(keep, device):
+    from normalizingflow_tpu_torch.targets import NealsFunnel
+
+    flow = build_flow(None, device)
+    flow.load_state_dict(torch.load(keep / "funnel.pt", map_location=device))
+    flow.requires_grad_(False)
+    return flow, NealsFunnel(DIM)
+
+
+def par_latents(seed, device):
+    """The SMC proposal's latents (SMC_PARTICLES, 64) and the funnel
+    chains' start (CHAINS, DIM), the same on every rank."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    z_smc = torch.randn(SMC_PARTICLES, DIM, generator=gen, device=device)
+    z_hmc = torch.randn(CHAINS, DIM, generator=gen, device=device)
+    return z_smc, z_hmc
+
+
+def par_batches(data, seed, device):
+    """PAR_TRAIN_STEPS batches of the config's 100 frames, the same on
+    every rank."""
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    idx = torch.randint(0, data.shape[0], (PAR_TRAIN_STEPS, PAR_BATCH),
+                        generator=gen, device=device)
+    return [data[i] for i in idx]
+
+
+def sample_in_blocks(flow, z):
+    """flow.sample of the latents `z`, PAR_BLOCK rows a call: the rows a
+    rank of two samples, so that every world size and the unsharded
+    reference compute each row alike."""
+    with torch.no_grad():
+        return torch.cat([flow.sample(z=part)[0]
+                          for part in z.split(PAR_BLOCK)])
+
+
+def phi4_optimizer(flow, cfg):
+    from normalizingflow_tpu_torch.train.loop import make_optimizer
+
+    tp = cfg.train_parameters
+    return make_optimizer(list(flow.parameters()), tp.learning_rate,
+                          tp.scheduler, tp.lr_scheduler_gamma, tp.max_epochs)
+
+
+def parallel_work(mesh, keep, cfg, seed, profile=False):
+    """One rank's share of the parallel phase, on `mesh`: run_smc_sharded on
+    the trained Phi4 flow, PAR_TRAIN_STEPS of make_sharded_train_step on its
+    data (with `profile`, under device_idle), and run_hmc_sharded on the
+    funnel pullback (a short run, then WARMUP + PAR_HMC_DRAWS). Every rank
+    builds the same global inputs and draw streams and takes its rows.
+    Returns this rank's results (CPU tensors), its launches by kernel and
+    seconds by part."""
+    import numpy as np
+
+    from normalizingflow_tpu_torch.mcmc import (
+        pullback_logprob_batched,
+        push_to_data,
+    )
+    from normalizingflow_tpu_torch.parallel import (
+        make_sharded_train_step,
+        run_hmc_sharded,
+        run_smc_sharded,
+    )
+
+    device = mesh.device
+    flow, potential = phi4_model(cfg, keep, device)
+    data = torch.as_tensor(np.load(keep / "phi4_train.npy"), device=device,
+                           dtype=torch.float32)
+    batches = par_batches(data, seed, device)
+    funnel, target = funnel_model(keep, device)
+    z_smc, z_hmc = par_latents(seed, device)
+    smc_rows, hmc_rows = mesh.rows(SMC_PARTICLES), mesh.rows(CHAINS)
+    out, seconds = {}, {}
+    reset_launch_counts()
+    torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    flow.requires_grad_(False)
+    x0 = mesh.all_gather(sample_in_blocks(flow, z_smc[smc_rows]))
+    draws = rows_of(smc_stream(torch.Generator(device=device).manual_seed(
+        seed + 1), SMC_PARTICLES, DIM, torch.float32, device), smc_rows)
+
+    res = run_smc_sharded(mesh, None, x0, flow.log_prob, potential.log_prob,
+                          n_mutation_steps=SMC_MUTATIONS,
+                          num_leapfrog=SMC_LEAPFROG, step_size=SMC_STEP,
+                          draws=draws)
+    out["smc"] = dict(log_z=float(res.log_evidence), stages=res.n_stages,
+                      final_accept=float(res.final_accept),
+                      particles=res.particles.cpu())
+    seconds["smc"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    flow.requires_grad_(True)
+    step = make_sharded_train_step(flow, phi4_optimizer(flow, cfg), mesh)
+    losses = []
+
+    def train():
+        losses.extend(float(step(x)[0]) for x in batches)
+
+    if profile:
+        out["train_profiled"] = device_idle(train)
+    else:
+        train()
+    out["train"] = dict(losses=losses, params=torch.cat(
+        [p.detach().reshape(-1) for p in flow.parameters()]).cpu())
+    seconds["train"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    logp = pullback_logprob_batched(funnel, target)
+    warm, draws_n = PAR_SHORT
+    short = run_hmc_sharded(
+        mesh, None, logp, z_hmc, draws_n, num_warmup=warm, step_size=0.5,
+        num_leapfrog=LEAPFROG, draws=rows_of(hmc_stream(
+            torch.Generator(device=device).manual_seed(seed + 2), CHAINS,
+            DIM, torch.float32, device), hmc_rows))
+    out["hmc_short"] = dict(samples=short.samples.cpu(),
+                            step_size=float(short.step_size),
+                            accept=float(short.accept_rate))
+    full = run_hmc_sharded(
+        mesh, None, logp, z_hmc, PAR_HMC_DRAWS, num_warmup=WARMUP,
+        step_size=0.5, num_leapfrog=LEAPFROG, draws=rows_of(hmc_stream(
+            torch.Generator(device=device).manual_seed(seed + 3), CHAINS,
+            DIM, torch.float32, device), hmc_rows))
+    # v of every rank's chains: (chains, draws) gathered over the ranks
+    v = mesh.all_gather(push_to_data(funnel, full.samples)[..., 0].T
+                        .contiguous())
+    out["hmc_full"] = dict(
+        accept=float(full.accept_rate), step_size=float(full.step_size),
+        v_mean=float(v.mean()), v_var=float(v.var(correction=0)),
+        finite=bool(torch.isfinite(v).all()))
+    torch.cuda.synchronize()
+    seconds["hmc"] = time.perf_counter() - t0
+    out["launches"] = launch_counts()
+    out["seconds"] = seconds
+    return out
+
+
+def par_expected(out, cfg, world):
+    """The launches one rank's parallel_work implies: SMC samples its
+    PAR_BLOCK-row blocks (one RQS launch a coordinate a layer each), then a
+    stage evaluates the flow once without gradient and 1 + SMC_MUTATIONS x
+    SMC_LEAPFROG times with its VJP, and launches the accept kernel once a
+    mutation step; a training step runs each layer's forward and VJP once;
+    the funnel's HMC launches the accept kernel once a transition."""
+    from normalizingflow_tpu_torch.mcmc import padded_length
+
+    layers, dim = cfg.flow.nlayers, cfg.dataset.nparticles * cfg.dataset.dim
+    stages = out["smc"]["stages"]
+    grads = 1 + SMC_MUTATIONS * SMC_LEAPFROG
+    blocks = SMC_PARTICLES // world // PAR_BLOCK
+    transitions = sum(PAR_SHORT) + padded_length(WARMUP) \
+        + padded_length(PAR_HMC_DRAWS)
+    return dict(accept_select=SMC_MUTATIONS * stages + transitions,
+                accept_unfused=0,
+                rqs=layers * (blocks * dim + stages * (1 + grads)
+                              + PAR_TRAIN_STEPS),
+                rqs_vjp=layers * (stages * grads + PAR_TRAIN_STEPS))
+
+
+class PartsMesh:
+    """A one-process stand-in for a mesh of `world` ranks: no collective,
+    but a mean over the chain axis sums each rank's block of rows, then
+    the blocks in rank order, as the sharded run's SUM all-reduce does (at
+    two ranks a + b, whichever rank adds), so that an unsharded run on it
+    rounds as the sharded run."""
+
+    size, rank = 1, 0
+
+    def __init__(self, world):
+        self.world = world
+
+    def rows(self, n):
+        return slice(0, n)
+
+    def mean(self, x):
+        parts = [p.sum(dim=0) for p in x.chunk(self.world)]
+        return sum(parts[1:], parts[0]) / x.shape[0]
+
+    def sum(self, t):
+        return t.clone()
+
+    def all_gather(self, x):
+        return x
+
+    def broadcast(self, t):
+        return t.clone()
+
+
+def par_reference(keep, cfg, seed, world, device):
+    """The unsharded runs the sharded ones are held to, on the same inputs
+    and draw streams, in one process: run_smc and the short run_hmc with
+    their chain means in the ranks' order (PartsMesh), run_smc with
+    torch.mean (the plain run, reported beside), and PAR_TRAIN_STEPS
+    one-rank steps on the same batches with each batch's gradient
+    accumulated over `world` equal parts, as the ranks split it (the mean
+    of the parts' gradients; world 1: the whole batch)."""
+    import numpy as np
+
+    from normalizingflow_tpu_torch.mcmc import (
+        pullback_logprob_batched,
+        run_hmc,
+        run_smc,
+    )
+    from normalizingflow_tpu_torch.train.objectives import forward_kl_loss
+
+    flow, potential = phi4_model(cfg, keep, device)
+    data = torch.as_tensor(np.load(keep / "phi4_train.npy"), device=device,
+                           dtype=torch.float32)
+    z_smc, z_hmc = par_latents(seed, device)
+    flow.requires_grad_(False)
+    x0 = sample_in_blocks(flow, z_smc)
+    ref = {}
+    for key, mesh in (("smc", PartsMesh(world)), ("smc_plain", None)):
+        res = run_smc(torch.Generator(device=device).manual_seed(seed + 1),
+                      x0, flow.log_prob, potential.log_prob,
+                      n_mutation_steps=SMC_MUTATIONS,
+                      num_leapfrog=SMC_LEAPFROG, step_size=SMC_STEP,
+                      device=device, mesh=mesh)
+        ref[key] = dict(log_z=float(res.log_evidence), stages=res.n_stages,
+                        particles=res.particles.cpu())
+
+    flow.requires_grad_(True)
+    opt = phi4_optimizer(flow, cfg)
+    params = list(flow.parameters())
+    for x in par_batches(data, seed, device):
+        grads = []
+        for part in x.chunk(world):
+            opt.zero_grad(set_to_none=True)
+            forward_kl_loss(flow, part)[0].backward()
+            grads.append([p.grad for p in params])
+        for p, parts in zip(params, zip(*grads)):
+            p.grad = sum(parts[1:], parts[0]) / world
+        opt.step()
+    ref["params"] = torch.cat([p.detach().reshape(-1)
+                               for p in params]).cpu()
+
+    funnel, target = funnel_model(keep, device)
+    warm, draws_n = PAR_SHORT
+    short = run_hmc(torch.Generator(device=device).manual_seed(seed + 2),
+                    pullback_logprob_batched(funnel, target), z_hmc, draws_n,
+                    num_warmup=warm, step_size=0.5, num_leapfrog=LEAPFROG,
+                    device=device, mesh=PartsMesh(world))
+    ref["hmc_short"] = dict(samples=short.samples.cpu(),
+                            step_size=float(short.step_size))
+    return ref
+
+
+def par_compare(label, ranks, ref, cfg, world):
+    """Gates of one world size's ranks against the unsharded reference
+    (par_reference): exact launch counts on every rank; the global
+    statistics and parameters identical on every rank; SMC with the
+    reference's stages, log-evidence within PAR_LOGZ_RTOL and dF/particle
+    within SMC_GATE of the JAX record (the plain run's stages and
+    log-evidence are reported beside); parameters within PAR_PARAM_TOL of
+    the one-rank steps; the short HMC run's step size within PAR_HMC_RTOL
+    and its chains within PAR_CHAIN_TOL of the reference (all but
+    PAR_CHAIN_SHARE of them); the funnel's gates over the full run. Returns
+    the statistics it logs."""
+    npart = cfg.dataset.nparticles * cfg.dataset.dim
+    smc = ranks[0]["smc"]
+    particles = torch.cat([r["smc"]["particles"] for r in ranks])
+    params = ranks[0]["train"]["params"]
+    short = torch.cat([r["hmc_short"]["samples"] for r in ranks], dim=1)
+    chain_err = (short - ref["hmc_short"]["samples"]).abs().amax(dim=(0, 2))
+    stats = dict(
+        world=world, smc_stages=smc["stages"], smc_log_z=smc["log_z"],
+        smc_df=-smc["log_z"] / npart, ref_log_z=ref["smc"]["log_z"],
+        smc_log_z_rel=abs(smc["log_z"] / ref["smc"]["log_z"] - 1),
+        smc_particles_max_diff=float(
+            (particles - ref["smc"]["particles"]).abs().max()),
+        smc_final_accept=smc["final_accept"],
+        plain_smc_stages=ref["smc_plain"]["stages"],
+        plain_smc_log_z_rel=abs(smc["log_z"] / ref["smc_plain"]["log_z"]
+                                - 1),
+        train_losses=ranks[0]["train"]["losses"],
+        train_params_max_diff=float((params - ref["params"]).abs().max()),
+        hmc_short_step_rel=abs(ranks[0]["hmc_short"]["step_size"]
+                               / ref["hmc_short"]["step_size"] - 1),
+        hmc_short_chains_within=float((chain_err <= PAR_CHAIN_TOL)
+                                      .double().mean()),
+        hmc_short_max_diff=float(chain_err.max()),
+        hmc_full=ranks[0]["hmc_full"],
+        launches=[r["launches"] for r in ranks],
+        seconds=[r["seconds"] for r in ranks],
+        train_profiled=ranks[0].get("train_profiled"))
+    log(f"{label}: " + json.dumps(stats))
+    for r in ranks:
+        want = par_expected(r, cfg, world)
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: launches {r['launches']}, the "
+                                 f"code implies {want}")
+        for key in ("smc", "hmc_full"):
+            others = {k: v for k, v in r[key].items() if k != "particles"}
+            mine = {k: v for k, v in ranks[0][key].items()
+                    if k != "particles"}
+            if others != mine:
+                raise AssertionError(f"{label}: {key} differs across ranks")
+        if not torch.equal(r["train"]["params"], params):
+            raise AssertionError(f"{label}: parameters differ across ranks")
+    if smc["stages"] != ref["smc"]["stages"] or \
+            stats["smc_log_z_rel"] > PAR_LOGZ_RTOL:
+        raise AssertionError(f"{label}: SMC off the unsharded run: {stats}")
+    if abs(stats["smc_df"] - JAX_SMC_DF) > SMC_GATE or \
+            not bool(torch.isfinite(particles).all()):
+        raise AssertionError(f"{label}: SMC dF/particle {stats['smc_df']} "
+                             f"more than {SMC_GATE} from {JAX_SMC_DF}")
+    if stats["train_params_max_diff"] > PAR_PARAM_TOL or \
+            not all(math.isfinite(x) for x in stats["train_losses"]):
+        raise AssertionError(f"{label}: training off the one-rank steps")
+    if stats["hmc_short_step_rel"] > PAR_HMC_RTOL or \
+            stats["hmc_short_chains_within"] < 1 - PAR_CHAIN_SHARE:
+        raise AssertionError(f"{label}: short HMC run off the unsharded")
+    full = stats["hmc_full"]
+    if not (full["finite"] and 0.6 <= full["accept"] <= 0.95
+            and abs(full["v_mean"]) < 0.15 and abs(full["v_var"] - 9) < 0.9):
+        raise AssertionError(f"{label}: funnel gates failed: {full}")
+    return stats
+
+
+def _par_rank(rank, world, keep, cfg, seed):
+    """A spawned rank of the two-rank run: gloo over CUDA tensors on the
+    one card; its results go to keep/w<world>_<rank>.pt."""
+    import torch.distributed as dist
+
+    from normalizingflow_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{keep}/gloo_store",
+                            world_size=world, rank=rank)
+    try:
+        out = parallel_work(make_mesh(), keep, cfg, seed)
+        torch.save(out, keep / f"w{world}_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def profile_trace(keep, seed, device):
+    """utils.profiling.trace around two funnel transitions: the Chrome
+    trace it writes must name the accept kernel, the matmuls and the
+    annotated range."""
+    from normalizingflow_tpu_torch.mcmc import (
+        pullback_logprob_batched,
+        run_hmc,
+    )
+    from normalizingflow_tpu_torch.utils import annotate, trace
+
+    funnel, target = funnel_model(keep, device)
+    z = par_latents(seed, device)[1]
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    with trace(str(keep / "trace")):
+        with annotate("funnel_transitions"):
+            run_hmc(gen, pullback_logprob_batched(funnel, target), z, 2,
+                    num_warmup=0, step_size=0.5, num_leapfrog=LEAPFROG,
+                    device=device)
+            torch.cuda.synchronize()
+    (path,) = (keep / "trace").glob("trace_*.json")
+    text = path.read_text()
+    names = {"accept kernel": "hmc_accept_kernel", "matmul": "gemm",
+             "annotation": "funnel_transitions"}
+    found = {k: v in text for k, v in names.items()}
+    log(f"profiling: trace {path.stat().st_size / 1e6:.2f} MB, names "
+        + json.dumps(found))
+    if not all(found.values()):
+        raise AssertionError(f"profiling: the trace lacks {found}")
+
+
+def elementary_phase():
+    """configs/Gaussian_rnvp.yaml with its flow replaced by each of Planar,
+    Radial and OneByOneConv: apps.train for ELEMENTARY_EPOCHS (two chunks);
+    gates: no kernel launch, the second chunk's mean log-prob above the
+    first's, and for Radial and OneByOneConv a round trip on the card
+    (Planar has no inverse)."""
+    from normalizingflow_tpu_torch.apps import train as app_train
+    from normalizingflow_tpu_torch.apps.test import load_trained
+    from normalizingflow_tpu_torch.config import load_config
+
+    depth_cut("elementary", "train epochs", ELEMENTARY_EPOCHS, 3000)
+    stats = {}
+    for kind in ELEMENTARY:
+        with tempfile.TemporaryDirectory() as tmpdir:
+            tmp = Path(tmpdir)
+            cfg_path = fe_config("Gaussian_rnvp", tmp,
+                                 {"max_epochs": ELEMENTARY_EPOCHS},
+                                 flow={"type": kind})
+            cfg = load_config(cfg_path)
+            reset_launch_counts()
+            trained = Step(app_train.main, [cfg_path])
+            trained.expect(f"elementary {kind}")
+            first, last, chunks = chunk_logprobs(cfg)
+            rt = None
+            if kind != "Planar":
+                flow, potential, _ = load_trained(cfg)
+                x = potential.sample(4096, generator=torch.Generator(
+                    device=next(flow.parameters()).device).manual_seed(7))
+                with torch.no_grad():
+                    z = flow.bijector.forward(x)[0]
+                rt = round_trip(flow, z, kind)
+        stats[kind] = dict(train_s=trained.seconds,
+                           ms_per_step=trained.seconds * 1e3
+                           / ELEMENTARY_EPOCHS, first_chunk_logprob=first,
+                           last_chunk_logprob=last, chunks=chunks,
+                           round_trip=rt)
+        if not (math.isfinite(last) and last > first):
+            raise AssertionError(f"elementary {kind}: chunk log-prob "
+                                 f"{first} -> {last}")
+    log("elementary: " + json.dumps(stats))
+    return stats
+
+
+def parallel_phase(keep, cfg, seed):
+    """The multi-device layer on the card: parallel_work at NCCL world size
+    1 in this process, then over two gloo ranks on the one card (NCCL
+    refuses two ranks on one GPU), spawned from here with the kernels
+    already built; each against the unsharded reference (par_compare).
+    Then the trace and the elementary flows. Returns the launches by world
+    size, summed over the ranks."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from normalizingflow_tpu_torch.parallel import make_mesh
+
+    depth_cut("parallel", "funnel HMC draws", PAR_HMC_DRAWS, FULL_DRAWS)
+    depth_cut("parallel", "Phi4 train steps", PAR_TRAIN_STEPS, 4000)
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{keep}/nccl_store",
+                            world_size=1, rank=0)
+    try:
+        t0 = time.perf_counter()
+        w1 = parallel_work(make_mesh(), keep, cfg, seed, profile=True)
+        w1_s = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    stats = dict(w1=par_compare("parallel_w1", [w1],
+                                par_reference(keep, cfg, seed, 1, "cuda"), cfg,
+                                1))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(_par_rank, args=(PAR_WORLD, keep, cfg, seed), nprocs=PAR_WORLD)
+    w2_s = time.perf_counter() - t0
+    ranks = [torch.load(keep / f"w{PAR_WORLD}_{r}.pt")
+             for r in range(PAR_WORLD)]
+    stats["w2"] = par_compare(f"parallel_w{PAR_WORLD}", ranks,
+                              par_reference(keep, cfg, seed, PAR_WORLD,
+                                            "cuda"), cfg, PAR_WORLD)
+    profile_trace(keep, seed, "cuda")
+    elementary = elementary_phase()
+    log("parallel: " + json.dumps(dict(
+        w1_s=w1_s, w2_spawn_s=w2_s, phase_s=time.perf_counter() - t_phase,
+        elementary_s=sum(e["train_s"] for e in elementary.values()))))
+    return {"parallel_w1": w1["launches"],
+            f"parallel_w{PAR_WORLD}": {k: sum(r["launches"][k]
+                                              for r in ranks)
+                                       for k in w1["launches"]}}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -2042,10 +2606,13 @@ def main(argv=None):
                           else (REDUCED_TRAIN_STEPS, REDUCED_DRAWS))
     depth_cut("main", "train steps", train_steps, FULL_TRAIN_STEPS)
     depth_cut("main", "draws", draws, FULL_DRAWS)
+    keep_dir = tempfile.TemporaryDirectory()  # trained flows, for later
+    keep = Path(keep_dir.name)
     funnel, flow = main_path(train_steps, draws, args.seed)
     nuts_draws = FULL_NUTS_DRAWS if args.full else NUTS_DRAWS
     depth_cut("nuts_funnel", "draws", nuts_draws, FULL_NUTS_DRAWS)
     nuts = dict(nuts_funnel=nuts_funnel(flow, nuts_draws, args.seed))
+    torch.save(flow.state_dict(), keep / "funnel.pt")
     del flow
     nuts["nuts_eight_schools"] = nuts_eight_schools(args.seed)
     torch.cuda.empty_cache()
@@ -2057,11 +2624,14 @@ def main(argv=None):
     torch.cuda.empty_cache()
     fe_fe400k = fe_fe400k_phase(args.seed)
     torch.cuda.empty_cache()
-    fe_phi4, smc = fe_phi4_phase(args.seed)
+    fe_phi4, smc, phi4_cfg = fe_phi4_phase(args.seed, keep)
     torch.cuda.empty_cache()
     poly = polymer_phase(args.seed)
     torch.cuda.empty_cache()
     rnvp = polymer_rnvp_phase()
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(keep, phi4_cfg, args.seed)
+    keep_dir.cleanup()
     log(f"run: {time.perf_counter() - t0:.1f} s from the build's start")
 
     def entry(name, source, replaces, by_path, timed, errs, checks):
@@ -2078,10 +2648,10 @@ def main(argv=None):
                 for key, r in checks.items()])
 
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
-                       polymer_rnvp=rnvp, **nuts, smc_phi4=smc)
+                       polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
-                   for n, d in KERNEL_SHAPES[-2:] + [(SMC_PARTICLES, DIM)]}
+                   for n, d in KERNEL_SHAPES[-3:] + [(SMC_PARTICLES, DIM)]}
 
     main_shape = (SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS, True, "sym")
     kernels = [

@@ -1,8 +1,11 @@
 """Free-energy evaluation CLI. Twin of normalizingflow_tpu/apps/test.py.
 
-`python -m normalizingflow_tpu_torch.apps.test <config.yaml>`
+`python -m normalizingflow_tpu_torch.apps.test <config.yaml>
+[--checkpoint PATH]`
 
-Loads the trained model (`{model_dir}/{name}.pt`), runs `fe_diff` at 500
+Loads the trained model (`{model_dir}/{name}.pt`, or the checkpoint that
+`--checkpoint` names: a `.msgpack` path is read as the JAX package's
+checkpoint, any other as the port's), runs `fe_diff` at 500
 samples (with relaxation for the particle systems, as the reference does)
 and prints the four estimates. Beside the Q plot it writes
 `{testing_dir}/fe_{name}.npz`: the estimates, the work matrices and the
@@ -21,20 +24,26 @@ import torch
 
 from ..config import config_device, load_config, setup_model
 from ..params import from_jax, to_numpy
-from ..train.checkpoint import load_checkpoint
+from ..train.checkpoint import load_checkpoint, load_jax_checkpoint
 from .fe_eval import fe_diff
 from .train import checkpoint_path
 
 RELAXED_POTENTIALS = ("LJ", "Fe", "EAM")
 
 
-def load_trained(cfg, mode="testing", device=None):
-    """(flow with the checkpoint's params, data potential, cfg)."""
+def load_trained(cfg, mode="testing", device=None, checkpoint=None):
+    """(flow with the checkpoint's params, data potential, cfg). The
+    checkpoint is `checkpoint` if given (a `.msgpack` path is the JAX
+    package's format, read by load_jax_checkpoint), else the port's
+    `{model_dir}/{name}.pt`."""
     device = config_device(cfg) if device is None else device
     flow, potential, cfg = setup_model(cfg, mode=mode, device=device)
-    state = load_checkpoint(checkpoint_path(cfg),
-                            {"params": to_numpy(flow)})
-    from_jax(flow, state["params"])
+    path = checkpoint or checkpoint_path(cfg)
+    if path.endswith(".msgpack"):
+        load_jax_checkpoint(path, flow)
+    else:
+        state = load_checkpoint(path, {"params": to_numpy(flow)})
+        from_jax(flow, state["params"])
     return flow, potential, cfg
 
 
@@ -54,12 +63,14 @@ def plot_path_or_none(path):
 
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
+    if not argv or len(argv) not in (1, 3) or (
+            len(argv) == 3 and argv[1] != "--checkpoint"):
         print("usage: python -m normalizingflow_tpu_torch.apps.test "
-              "<config.yaml>", file=sys.stderr)
+              "<config.yaml> [--checkpoint PATH]", file=sys.stderr)
         return 2
     cfg = load_config(argv[0])
-    flow, potential, cfg = load_trained(cfg)
+    flow, potential, cfg = load_trained(
+        cfg, checkpoint=argv[2] if len(argv) == 3 else None)
     out_dir = cfg.output.testing_dir
     os.makedirs(out_dir, exist_ok=True)
     name = cfg.dataset.name

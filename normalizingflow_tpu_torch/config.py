@@ -13,9 +13,6 @@ Twin of normalizingflow_tpu/config.py.
   * the `device:` key: `cpu` runs on the CPU; `tpu`, `cuda`, `cuda:N` or no
     key mean the card (the configs name the accelerator they were written
     for). Nothing falls back to the CPU: without a card, `cuda` raises.
-
-Flows the port does not have yet (Planar, Radial, OneByOneConv) raise
-NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -32,7 +29,10 @@ from .bijectors import (
     ActNorm,
     AffineCoupling,
     Chain,
+    InvertibleLinear,
     MaskedAffineAR,
+    Planar,
+    Radial,
     Repeat,
     SplineAR,
     SplineCoupling,
@@ -206,12 +206,6 @@ def _load_centers(centers, point_dim):
     return centers
 
 
-def _not_ported(what, item):
-    return NotImplementedError(
-        f"{what} is not ported to normalizingflow_tpu_torch yet "
-        f"(ROADMAP Queue 1 item {item})")
-
-
 def build_potential(name, cfg_section, ds: DatasetConfig, boxlength=None,
                     device=None, dtype=None):
     """The prior or target named `name`, from its config section."""
@@ -299,11 +293,15 @@ def build_flow_stack(cfg: Config, b: float, device=None, dtype=None,
     elif fc.type == "MAF":
         layers = [MaskedAffineAR(n, hidden_dim=fc.hidden_dim, **kw)
                   for _ in range(fc.nlayers)]
+    elif fc.type == "Planar":
+        layers = [Planar(n, **kw) for _ in range(fc.nlayers)]
+    elif fc.type == "Radial":
+        layers = [Radial(n, **kw) for _ in range(fc.nlayers)]
     elif fc.type == "ActNorm":
         layers = [ActNorm(n, device=device, dtype=dtype)
                   for _ in range(fc.nlayers)]
-    elif fc.type in ("Planar", "Radial", "OneByOneConv"):
-        raise _not_ported(f"the {fc.type} flow", 13)
+    elif fc.type == "OneByOneConv":
+        layers = [InvertibleLinear(n, **kw) for _ in range(fc.nlayers)]
     else:
         raise KeyError(f"unknown flow type {cfg.flow.type!r}")
     return Chain(layers)

@@ -4,7 +4,8 @@ Twin of normalizingflow_tpu/mcmc/adaptation.py. The states are tuples of
 tensors that stay on the chains' device, so a warmup step never waits for
 the host. Acceptance is averaged over the chain axis each step, and the
 diagonal mass is the Welford variance pooled over chains x steps inside
-each adaptation window.
+each adaptation window. With a `mesh`, both are global over the ranks'
+chains (parallel/sharded.py).
 """
 
 from __future__ import annotations
@@ -66,11 +67,20 @@ def welford_init(dim, dtype=torch.float32, device=None):
                         count=torch.zeros((), **kw))
 
 
-def welford_update_batch(state, x):
-    """Fold a (chains, dim) batch into the running moments (chunk update)."""
-    n_b = x.shape[0]
-    mean_b = torch.mean(x, dim=0)
-    m2_b = torch.sum((x - mean_b) ** 2, dim=0)
+def welford_update_batch(state, x, mesh=None):
+    """Fold a (chains, dim) batch into the running moments (chunk update).
+
+    With `mesh` (parallel.Mesh), `x` is this rank's rows of the chain
+    batch and the batch's moments are global: its mean by one SUM
+    all-reduce, then the squared deviations about that mean by a second."""
+    if mesh is None:
+        n_b = x.shape[0]
+        mean_b = torch.mean(x, dim=0)
+        m2_b = torch.sum((x - mean_b) ** 2, dim=0)
+    else:
+        n_b = x.shape[0] * mesh.size
+        mean_b = mesh.mean(x)
+        m2_b = mesh.sum(torch.sum((x - mean_b) ** 2, dim=0))
     n_a = state.count
     n = n_a + n_b
     delta = mean_b - state.mean

@@ -166,14 +166,22 @@ def draw_source(draws, make):
     return lambda: next(draws)
 
 
+def chain_mean(x, mesh=None):
+    """Mean over the chain axis (dim 0): over this process's chains, or,
+    with `mesh` (parallel.Mesh), over every rank's."""
+    return torch.mean(x, dim=0) if mesh is None else mesh.mean(x)
+
+
 def warmup(step, state, num_warmup, step_size, inv_mass_diag,
-           target_accept):
+           target_accept, mesh=None):
     """Stan-style warmup of `padded_length(num_warmup)` transitions
     `step(state, eps, inv_mass) -> (state, info)`: dual averaging of the
     step size on the chain-mean `info.accept_prob`, and the windowed Welford
     mass. Pad transitions past num_warmup adapt the step size but do no
-    window bookkeeping, as in JAX. Returns (state, the averaged step size,
-    the inverse mass)."""
+    window bookkeeping, as in JAX. With `mesh`, `state` holds this rank's
+    chains and both statistics are global (`chain_mean`,
+    `welford_update_batch`). Returns (state, the averaged step size, the
+    inverse mass)."""
     dtype, device = state.position.dtype, state.position.device
     dim = state.position.shape[1]
     in_window, window_end = warmup_schedule(num_warmup)
@@ -182,10 +190,10 @@ def warmup(step, state, num_warmup, step_size, inv_mass_diag,
     wf_state = welford_init(dim, dtype, device)
     for i in range(padded_length(num_warmup)):
         state, info = step(state, da_step_size(da_state), inv_mass_diag)
-        da_state = da_update(da_state, torch.mean(info.accept_prob),
+        da_state = da_update(da_state, chain_mean(info.accept_prob, mesh),
                              target_accept)
         if i < num_warmup and in_window[i]:
-            wf_state = welford_update_batch(wf_state, state.position)
+            wf_state = welford_update_batch(wf_state, state.position, mesh)
         if i < num_warmup and window_end[i]:
             inv_mass_diag = welford_variance(wf_state)
             # restart step-size averaging around the current iterate
@@ -197,13 +205,17 @@ def warmup(step, state, num_warmup, step_size, inv_mass_diag,
 def run_hmc(generator, logprob_fn, init_position, num_samples,
             num_warmup=500, step_size=0.1, num_leapfrog=10,
             target_accept=0.8, thin=1, inv_mass_diag=None, step_jitter=0.2,
-            draws=None, device="cuda"):
+            draws=None, device="cuda", mesh=None):
     """Full HMC run: warmup (adaptation) + sampling.
 
     `logprob_fn` maps (chains, dim) -> (chains,). `init_position` is
     (chains, dim) on `device`. Randomness comes from `generator`, or from
     the iterator `draws` of per-transition raw draws (see the module
-    docstring). Returns HMCResult with samples (num_samples, chains, dim).
+    docstring). With `mesh` (parallel.Mesh), `init_position` and the draws
+    are this rank's chains, and the three statistics that cross chains (the
+    warmup's mean acceptance, its Welford window, `accept_rate`) are
+    reduced over every rank's. Returns HMCResult with samples
+    (num_samples, chains, dim).
     """
     device = entry_device(device)
     check_on(device, init_position)
@@ -225,7 +237,8 @@ def run_hmc(generator, logprob_fn, init_position, num_samples,
 
     if num_warmup > 0:
         state, eps_final, inv_mass_diag = warmup(
-            step, state, num_warmup, step_size, inv_mass_diag, target_accept)
+            step, state, num_warmup, step_size, inv_mass_diag, target_accept,
+            mesh)
     else:
         eps_final = torch.as_tensor(step_size, dtype=dtype, device=device)
 
@@ -237,7 +250,7 @@ def run_hmc(generator, logprob_fn, init_position, num_samples,
     acc_sum = torch.zeros((), dtype=dtype, device=device)
     for i in range(n_run):
         state, info = step(state, eps_final, inv_mass_diag)
-        acc_sum = acc_sum + torch.mean(info.accept_prob)
+        acc_sum = acc_sum + chain_mean(info.accept_prob, mesh)
         for _ in range(thin - 1):
             state, _ = step(state, eps_final, inv_mass_diag)
         if i < num_samples:

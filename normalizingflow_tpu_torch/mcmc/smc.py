@@ -26,6 +26,7 @@ import torch
 from ..device import check_on, entry_device
 from .hmc import (
     batched_lp_grad,
+    chain_mean,
     hmc_init,
     hmc_transition,
     transition_draws,
@@ -65,6 +66,15 @@ class SMCResult(NamedTuple):
     final_accept: torch.Tensor   # mean HMC acceptance at the last stage
 
 
+def generator_draws(generator, n, dim, n_mutation_steps, dtype, device):
+    """run_smc's draws from `generator`, in the order it consumes them, for
+    `n` particles: each stage's u0, then its mutation steps' draws."""
+    while True:
+        yield torch.rand((), generator=generator, dtype=dtype, device=device)
+        for _ in range(n_mutation_steps):
+            yield transition_draws(generator, n, dim, dtype, device)
+
+
 def _next_beta(beta, delta, target_ess):
     """The largest beta' <= 1 whose incremental weights (beta' - beta) *
     delta keep ESS >= target_ess: bisection on the device, or 1 if even
@@ -80,26 +90,31 @@ def _next_beta(beta, delta, target_ess):
 
 def run_smc(generator, particles, proposal_logprob_fn, target_logprob_fn,
             n_mutation_steps=3, num_leapfrog=6, step_size=0.3,
-            ess_fraction=0.5, max_stages=64, draws=None, device="cuda"):
+            ess_fraction=0.5, max_stages=64, draws=None, device="cuda",
+            mesh=None):
     """Anneal `particles` (N, dim), drawn from the proposal, to the target.
 
     Both log-prob functions map (N, dim) -> (N,). The step size is nudged
     after each stage toward an acceptance of ~0.65. Returns SMCResult.
+
+    With `mesh` (parallel.Mesh), `particles` and the mutation draws are
+    this rank's rows of the global set. A stage all-gathers the N
+    incremental weights once; every rank then runs the bisection, the
+    log-evidence and the resampling on the whole vector, with the offset u0
+    of the mesh's first rank, and takes its rows of the resampled indices
+    from an all-gather of the particles. The mutation's mean acceptance,
+    which nudges the step size, is global. The returned particles are this
+    rank's rows.
     """
     device = entry_device(device)
     check_on(device, particles)
     n, dim = particles.shape
+    n_total = n if mesh is None else n * mesh.size
     dtype = particles.dtype
     inv_mass = torch.ones(dim, dtype=dtype, device=device)
 
-    def from_generator():
-        while True:
-            yield torch.rand((), generator=generator, dtype=dtype,
-                             device=device)
-            for _ in range(n_mutation_steps):
-                yield transition_draws(generator, n, dim, dtype, device)
-
-    draws = iter(from_generator() if draws is None else draws)
+    draws = iter(generator_draws(generator, n, dim, n_mutation_steps, dtype,
+                                 device) if draws is None else draws)
 
     beta = torch.zeros((), dtype=dtype, device=device)
     log_z = torch.zeros((), dtype=dtype, device=device)
@@ -110,11 +125,17 @@ def run_smc(generator, particles, proposal_logprob_fn, target_logprob_fn,
         with torch.no_grad():
             delta = target_logprob_fn(particles) \
                 - proposal_logprob_fn(particles)
-        beta_new = _next_beta(beta, delta, ess_fraction * n)
+        u0 = next(draws)
+        if mesh is not None:
+            delta, u0 = mesh.all_gather(delta), mesh.broadcast(u0)
+        beta_new = _next_beta(beta, delta, ess_fraction * n_total)
         log_w = (beta_new - beta) * delta
-        log_z = log_z + torch.logsumexp(log_w, dim=0) - math.log(n)
-        idx = systematic_resampling(log_w, u0=next(draws))
-        particles = particles[idx]
+        log_z = log_z + torch.logsumexp(log_w, dim=0) - math.log(n_total)
+        idx = systematic_resampling(log_w, u0=u0)
+        if mesh is None:
+            particles = particles[idx]
+        else:
+            particles = mesh.all_gather(particles)[idx[mesh.rows(n_total)]]
 
         def anneal_logprob(x, beta=beta_new):
             return (1.0 - beta) * proposal_logprob_fn(x) \
@@ -126,7 +147,7 @@ def run_smc(generator, particles, proposal_logprob_fn, target_logprob_fn,
             state, info = hmc_transition(lp_grad, state, next(draws), eps,
                                          num_leapfrog, inv_mass, STEP_JITTER,
                                          inplace=True)
-            accept = torch.mean(info.accept_prob)
+            accept = chain_mean(info.accept_prob, mesh)
         particles = state.position
         # crude step-size control: nudge toward ~0.65 acceptance
         eps = eps * torch.exp(torch.clamp(accept - 0.65, -0.2, 0.2))

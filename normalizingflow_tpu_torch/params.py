@@ -15,9 +15,15 @@ and the spline layers' trees are
     {"init_raw", "cond": {"w1", "b1", ..., "b3"}}           # SplineAR
     {"init_param", "cond": {"w1", "b1", ..., "b3"}}         # MaskedAffineAR
 
-(`cond` is absent at dim 1). MLP weights keep the JAX (fan_in, fan_out)
-layout and the AR layers their stacked (dim-1, ...) one, so leaves copy as
-they are. `NormalizingFlow` and `Invert` carry their inner bijector's tree.
+(`cond` is absent at dim 1), and the elementary layers' are
+
+    {"w", "u", "b"}                                        # Planar
+    {"x0", "log_alpha", "beta"}                            # Radial
+    {"P", "L", "S", "U"}                                   # InvertibleLinear
+
+(P is a parameter that takes no gradient). MLP weights keep the JAX
+(fan_in, fan_out) layout and the AR layers their stacked (dim-1, ...) one,
+so leaves copy as they are. `NormalizingFlow` and `Invert` carry their inner bijector's tree.
 A `Repeat` of n layers is one layer's tree with every leaf stacked on a
 new leading axis of length n.
 """

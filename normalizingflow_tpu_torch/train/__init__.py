@@ -1,4 +1,10 @@
-from .checkpoint import copy_checkpoint, load_checkpoint, save_checkpoint
+from .checkpoint import (
+    copy_checkpoint,
+    load_checkpoint,
+    load_jax_checkpoint,
+    read_jax_checkpoint,
+    save_checkpoint,
+)
 from .fused import train_flow_fused
 from .loop import (
     Adam,
@@ -17,7 +23,8 @@ from .objectives import (
 )
 
 __all__ = [
-    "copy_checkpoint", "load_checkpoint", "save_checkpoint",
+    "copy_checkpoint", "load_checkpoint", "load_jax_checkpoint",
+    "read_jax_checkpoint", "save_checkpoint",
     "train_flow_fused",
     "Adam", "ClippedAdam", "bench_optimizer", "make_optimizer", "train",
     "train_step",

@@ -12,7 +12,16 @@ bytes as they are, where it pickles a numpy array through a copy, about
 ten times slower for the LJ config's 0.5 GB training state; and a file of
 tensors, containers and numbers loads with `weights_only=True`. The apps
 name it `{name}.pt`, beside the JAX package's `{name}.msgpack`, so the two
-never collide; the JAX package's msgpack files are not read here.
+never collide.
+
+`load_jax_checkpoint` reads the JAX package's own files, so the port can
+evaluate a model the JAX package trained. They are flax.serialization
+msgpack: tuples and lists as maps keyed "0", "1", ...; arrays as msgpack
+extension 1, the packed (shape, dtype name, C-order bytes); numpy scalars
+as extension 3, the same packing; complex numbers as extension 2, (re,
+im); arrays over flax's chunk size as a map of chunks. Resuming training
+from a JAX optimizer state is not supported: its moments follow optax's
+tree, not the port's Adam.
 """
 
 from __future__ import annotations
@@ -76,3 +85,69 @@ def load_checkpoint(path, template=None):
     cast to the template's dtypes."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     return state if template is None else _cast_tree(state, template)
+
+
+def _jax_array(data):
+    """A numpy array from flax's packed (shape, dtype name, bytes); a
+    bfloat16 array, which numpy has no dtype for, as a torch tensor."""
+    import msgpack
+
+    shape, name, buffer = msgpack.unpackb(data, raw=True)
+    name = name.decode()
+    if name == "bfloat16":
+        bits = (torch.frombuffer(bytearray(buffer), dtype=torch.int16)
+                if buffer else torch.empty(0, dtype=torch.int16))
+        return bits.view(torch.bfloat16).reshape(shape)
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape)
+
+
+def _jax_ext(code, data):
+    import msgpack
+
+    if code == 1:  # ndarray
+        return _jax_array(data)
+    if code == 2:  # complex
+        re, im = msgpack.unpackb(data)
+        return complex(re, im)
+    if code == 3:  # numpy scalar
+        return _jax_array(data)[()]
+    raise ValueError(f"unknown msgpack extension type {code}")
+
+
+def _jax_tree(node):
+    """flax's state dict back to the params tree's containers: maps keyed
+    "0".."n-1" are tuples, chunked arrays are joined."""
+    if not isinstance(node, dict):
+        return node
+    if "__msgpack_chunked_array__" in node:
+        shape = tuple(_jax_tree(node["shape"]))
+        return np.concatenate(_jax_tree(node["chunks"])).reshape(shape)
+    tree = {k: _jax_tree(v) for k, v in node.items()}
+    if tree and list(tree) == [str(i) for i in range(len(tree))]:
+        return tuple(tree.values())
+    return tree
+
+
+def read_jax_checkpoint(path):
+    """The state the JAX package's `save_checkpoint` wrote to `path`, as a
+    tree of dicts, tuples and numpy arrays (bfloat16 leaves as tensors).
+    Needs the `msgpack` package, imported here."""
+    import msgpack
+
+    with open(path, "rb") as fh:
+        state = msgpack.unpackb(fh.read(), ext_hook=_jax_ext, raw=False,
+                                strict_map_key=False)
+    return _jax_tree(state)
+
+
+def load_jax_checkpoint(path, flow):
+    """Copy the params of the JAX package's checkpoint at `path` into
+    `flow` (params.from_jax; the flow must have the checkpoint's layout,
+    Repeat where the JAX config stacked its layers) and return the whole
+    decoded state ({"params", "opt_state", "key", "epoch", "losses"} for a
+    training checkpoint)."""
+    from ..params import from_jax
+
+    state = read_jax_checkpoint(path)
+    from_jax(flow, state["params"])
+    return state

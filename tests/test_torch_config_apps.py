@@ -108,10 +108,17 @@ def test_repeat_chain_switch(kind, nlayers, hidden, repeat):
 
 @pytest.mark.parametrize("kind", ["Planar", "Radial", "OneByOneConv"])
 def test_unported_flows_name_their_item(kind):
+    """Item 13 is ported: the three flows build (on the CPU, as the LU of
+    OneByOneConv's init needs data), with JAX's parameter count; an
+    unknown type still raises."""
     cfg = tconfig._merge_dataclass(tconfig.Config(),
                                    {"flow": {"type": kind}})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tconfig.build_flow_stack(cfg, 1.0, device="meta")
+    stack = tconfig.build_flow_stack(cfg, 1.0, device="cpu")
+    jstack = jconfig.build_flow_stack(
+        jconfig._merge_dataclass(jconfig.Config(), {"flow": {"type": kind}}),
+        1.0)
+    assert sum(p.numel() for p in stack.parameters()) == \
+        n_params_jax(jstack)
     with pytest.raises(KeyError, match="unknown flow type"):
         tconfig.build_flow_stack(tconfig._merge_dataclass(
             tconfig.Config(), {"flow": {"type": "Glow"}}), 1.0)

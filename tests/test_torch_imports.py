@@ -40,7 +40,8 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu"))
 need = {pkg.__name__ + "." + m for m in (
     "targets.eam", "targets.phi4", "targets.gff", "apps.polymer",
-    "mcmc.nuts", "mcmc.smc")}
+    "mcmc.nuts", "mcmc.smc", "parallel.mesh", "parallel.sharded",
+    "utils.profiling")}
 print(len(names), sorted(need - set(names)), bad)
 """
 
