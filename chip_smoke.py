@@ -93,7 +93,18 @@ NUTS and SMC (mcmc/nuts.py, mcmc/smc.py) run inside phases 4 and 9:
               depth, divergence, ESS, gradient calls and n_leapfrog a
               transition; gates: accept in [0.6, 0.95], divergence < 0.01,
               the funnel's v band, and no kernel launched;
-  4c. nuts_eight_schools: the Stan/posteriordb eight-schools check of
+  4c. bench : the port's bench entry points (normalizingflow_tpu_torch/
+              bench.py, bench_scaling.py) on phase 4's flow, bench.py's
+              timed protocol (adaptation, a warm call, three timed runs of
+              the draws and the push, the fastest kept): timed_sampling at
+              BENCH_DRAWS, the Gaussian line (training cut to
+              BENCH_GAUSS_STEPS), the NUTS line at BENCH_NUTS_DRAWS, the
+              speed-of-light row, and bench_scaling.throughput at NCCL world
+              size 1; gates: the line parses with every ported key present
+              and finite, the funnel's accept and v band, ESS within its
+              cap, exact launch counts (padded_length(draws) in each timed
+              run), mfu_vs_fp32_peak in (0, 1];
+  4d. nuts_eight_schools: the Stan/posteriordb eight-schools check of
               tests/test_nuts_smc.py in float32 (48 chains, 800 + 800,
               max depth 8), with its bands;
   9b. smc_phi4: flow-proposal SMC on the flow fe_phi4 trained, at
@@ -152,9 +163,10 @@ REDUCED_TRAIN_STEPS, REDUCED_DRAWS = 3000, 256
 # 8, at the LJ config's 96 coordinates; (256, 162) and (256, 64): the data
 # chains of Fe_400K (162 is no multiple of 4: scalar loads, 3 units a lane)
 # and of Phi4; (4096, 64): a rank's chains and particles in the parallel
-# phase's two-rank run
+# phase's two-rank run; (2048, 64): bench_scaling's chains at world size 1
 KERNEL_SHAPES = [(8192, 64), (4096, 96), (1056, 64), (300, 2048), (96, 6),
-                 (256, 96), (8, 96), (256, 162), (256, 64), (4096, 64)]
+                 (256, 96), (8, 96), (256, 162), (256, 64), (4096, 64),
+                 (2048, 64)]
 # accept kernel, checked too: rows wider than a block's registers (float
 # loads, 1030 > 256 threads x 4 units), which stream their tail
 WIDE_SHAPES = [(64, 1030)]
@@ -237,6 +249,29 @@ RNVP_STEPS = 20               # Polymer_rnvp.yaml: 15000
 NUTS_CHAINS, NUTS_MAX_DEPTH = 4096, 7
 NUTS_DRAWS, FULL_NUTS_DRAWS = 128, 256
 PROFILED = 3  # NUTS transitions, SMC stages, run under torch.profiler
+# The bench phase (normalizingflow_tpu_torch/bench.py): its draws, the
+# Gaussian line's training steps (the bench's: 15000; above the 500 of
+# its learning-rate warmup), NUTS draws and the scaling run's draws. At
+# 128, 1000, 64 and 128 the phase took 143 s on a slow host (68.6 ms a
+# funnel transition) and the run 992 s of its 1200, hence these cuts.
+BENCH_DRAWS, BENCH_GAUSS_STEPS = 64, 600
+BENCH_NUTS_DRAWS, BENCH_SCALING_DRAWS = 32, 64
+# The line's keys that the phase gates: bench.py's (bench.py:199-215 and
+# the detail of :540-552, without the spline line), NUTS's (:269-282) and
+# the speed-of-light row's with the port's float32 peak
+BENCH_HMC_KEYS = ("ess_min_bulk_x", "ess_min_bulk_x2", "ess_median_bulk_x",
+                  "ess_min_raw_x", "ess_min_raw_x2", "ess_tail_hardest_coord",
+                  "ess_cap", "sample_s", "sample_s_all", "train_s",
+                  "final_reverse_kl", "accept", "ess_per_s")
+BENCH_FUNNEL_KEYS = BENCH_HMC_KEYS[:-1] + (
+    "v_mean", "v_var", "chains", "draws", "leapfrog", "flow_layers",
+    "fwd_logdet_us_batch8192", "fwd_logdet_gflop", "achieved_tflops",
+    "mfu_vs_bf16_peak", "mfu_vs_fp32_peak", "sol_compute_us", "device",
+    "power_limit_w")
+BENCH_NUTS_KEYS = ("ess_per_s", "ess_min_bulk_x", "ess_min_bulk_x2",
+                   "ess_cap", "sample_s", "sample_s_all", "mean_tree_depth",
+                   "divergence_rate", "accept", "chains", "draws",
+                   "max_depth")
 # Flow-proposal SMC on the trained Phi4 flow at tools/phi4_smc.py's width:
 # particles, mutation steps, leapfrog steps, step size, seeds
 SMC_PARTICLES, SMC_MUTATIONS, SMC_LEAPFROG, SMC_STEP = 8192, 4, 8, 0.1
@@ -625,7 +660,7 @@ def main_path(train_steps, draws, seed, device="cuda"):
         ess_min_bulk_x=float(bulk_x.min()),
         ess_min_bulk_x2=float(bulk_x2.min()), ess_min=ess_min,
         ess_tail_hardest_coord=ess_tail,
-        sample_s=sample_s, ess_per_s=ess_min / sample_s,
+        sample_s=sample_s, ess_per_s_with_warmup=ess_min / sample_s,
         ms_per_transition=sample_s * 1e3 / transitions)
     log("main: " + json.dumps(stats))
 
@@ -644,7 +679,7 @@ def main_path(train_steps, draws, seed, device="cuda"):
         raise AssertionError(
             f"funnel v stats off: mean {stats['v_mean']}, var "
             f"{stats['v_var']} (exact 0, 9)")
-    return launches, flow
+    return launches, flow, stats
 
 
 # ------------------------------------------------------------------- nuts
@@ -1098,6 +1133,140 @@ def check_rqs_vjp(x, w, h, d, inverse, bounds, label, gen, flush,
                 bound_by=bound_by)
 
 
+# ------------------------------------------------------------ bench
+def finite_numbers(value):
+    """Every number in a JSON value (nested dicts and lists) is finite."""
+    if isinstance(value, dict):
+        return all(finite_numbers(v) for v in value.values())
+    if isinstance(value, list):
+        return all(finite_numbers(v) for v in value)
+    return not isinstance(value, float) or math.isfinite(value)
+
+
+def bench_phase(flow, main_stats, keep, seed):
+    """The port's bench entry points (normalizingflow_tpu_torch/bench.py,
+    bench_scaling.py) at their widths: bench.timed_sampling on the funnel
+    flow that main_path trained, the Gaussian line (its training cut), the
+    NUTS line, the speed-of-light row, then bench_scaling.throughput at
+    NCCL world size 1. The line is assembled by bench.headline (the spline
+    line is left out: the spline phase drives that path) and must parse
+    with every ported key present and finite; the funnel's accept and v
+    band are main_path's gates; ESS at most its cap; the fused accept
+    kernel launches padded_length(draws) times in each timed run, and
+    exactly the transitions of each path in all; NUTS and the row launch
+    none; mfu_vs_fp32_peak in (0, 1]. Returns the launches by path."""
+    import torch.distributed as dist
+
+    from normalizingflow_tpu_torch import bench, bench_scaling
+    from normalizingflow_tpu_torch.mcmc import padded_length
+    from normalizingflow_tpu_torch.parallel import make_mesh
+    from normalizingflow_tpu_torch.targets import NealsFunnel
+
+    depth_cut("bench", "funnel train steps (main's flow)",
+              main_stats["train_steps"], bench.TRAIN_STEPS)
+    depth_cut("bench", "funnel and gauss draws", BENCH_DRAWS, bench.DRAWS)
+    depth_cut("bench", "gauss train steps", BENCH_GAUSS_STEPS,
+              bench.TRAIN_STEPS)
+    depth_cut("bench", "nuts draws", BENCH_NUTS_DRAWS, bench.NUTS_DRAWS)
+    depth_cut("bench", "scaling draws", BENCH_SCALING_DRAWS,
+              bench_scaling.DRAWS)
+    t_phase = time.perf_counter()
+    paths, seconds = {}, {}
+
+    def counted(name, fn):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        paths[name] = launch_counts()
+        return out
+
+    funnel = counted("bench_funnel", lambda: bench.timed_sampling(
+        flow, NealsFunnel(DIM), torch.Generator(device="cuda").manual_seed(
+            seed + 30), draws=BENCH_DRAWS))
+    funnel.update(bench.funnel_v_stats(funnel.pop("samples")))
+    funnel.update(train_s=round(main_stats["train_s"], 1),
+                  final_reverse_kl=round(main_stats["final_reverse_kl"], 3))
+    gauss = counted("bench_gauss", lambda: bench.gauss_line(
+        torch.Generator(device="cuda").manual_seed(seed + 31),
+        draws=BENCH_DRAWS, train_steps=BENCH_GAUSS_STEPS))
+    nuts = counted("bench_nuts", lambda: bench.nuts_ess_line(
+        flow, NealsFunnel(DIM), torch.Generator(device="cuda").manual_seed(
+            seed + 32), draws=BENCH_NUTS_DRAWS))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 33)
+    fresh = bench.build_flow(generator=gen)
+    mfu = counted("bench_mfu", lambda: bench.mfu_fwd_logdet(fresh, gen))
+    # the profiler's kernel time of one such call, beside the row's
+    x = torch.randn(bench.CHAINS, DIM, generator=gen, device="cuda")
+    with torch.no_grad():
+        profiled = device_idle(lambda: fresh(x))
+    line = bench.headline(funnel, nuts, gauss, None, mfu,
+                          torch.cuda.get_device_name(0),
+                          bench.parse_power_limit(device_line()))
+    text = json.dumps(line)
+    log("bench: " + text)
+
+    dist.init_process_group("nccl", init_method=f"file://{keep}/bench_store",
+                            world_size=1, rank=0)
+    try:
+        thr, dt = counted("bench_scaling_w1", lambda: bench_scaling.throughput(
+            make_mesh(), flow, NealsFunnel(DIM),
+            torch.Generator(device="cuda").manual_seed(seed + 34),
+            draws=BENCH_SCALING_DRAWS))
+    finally:
+        dist.destroy_process_group()
+    scaling = dict(value=thr, sample_s=dt,
+                   chains=bench_scaling.CHAINS_PER_DEVICE,
+                   draws=BENCH_SCALING_DRAWS)
+    log("bench: " + json.dumps(dict(
+        scaling_w1=scaling, fwd_logdet_profiled=profiled, seconds=seconds,
+        phase_s=time.perf_counter() - t_phase)))
+
+    parsed = json.loads(text)
+    detail = parsed["detail"]
+    missing = [k for k in BENCH_FUNNEL_KEYS if k not in detail]
+    missing += [f"gaussian_secondary.{k}" for k in BENCH_HMC_KEYS
+                if k not in detail["gaussian_secondary"]]
+    missing += [f"nuts_funnel.{k}" for k in BENCH_NUTS_KEYS
+                if k not in detail["nuts_funnel"]]
+    if (parsed["metric"] != bench.METRIC or missing
+            or not finite_numbers(parsed) or not math.isfinite(thr)):
+        raise AssertionError(f"bench: line {text} lacks {missing} or holds "
+                             f"a non-finite number")
+    if not 0.6 <= detail["accept"] <= 0.95:
+        raise AssertionError(f"bench: funnel accept {detail['accept']}")
+    if abs(detail["v_mean"]) >= 0.15 or abs(detail["v_var"] - 9.0) >= 0.9:
+        raise AssertionError(f"bench: funnel v mean {detail['v_mean']}, "
+                             f"var {detail['v_var']} (exact 0, 9)")
+    for name, part in (("funnel", detail), ("gauss", gauss), ("nuts", nuts)):
+        ess_min = min(part["ess_min_bulk_x"], part["ess_min_bulk_x2"])
+        if not 0 < ess_min <= part["ess_cap"]:
+            raise AssertionError(f"bench: {name} ESS {ess_min}, cap "
+                                 f"{part['ess_cap']}")
+    if not 0 < detail["mfu_vs_fp32_peak"] <= 1:
+        raise AssertionError(f"bench: mfu {detail['mfu_vs_fp32_peak']}")
+    adapt = padded_length(WARMUP) + padded_length(2)
+    timed = padded_length(BENCH_DRAWS)
+    scaled = padded_length(BENCH_SCALING_DRAWS)
+    want = dict(bench_funnel=adapt + 4 * timed, bench_gauss=adapt + 4 * timed,
+                bench_nuts=0, bench_mfu=0,
+                bench_scaling_w1=padded_length(bench_scaling.WARMUP)
+                + padded_length(2) + 2 * scaled)
+    for name, count in want.items():
+        expect = dict(accept_select=count, accept_unfused=0, rqs=0,
+                      rqs_vjp=0)
+        if paths[name] != expect:
+            raise AssertionError(f"bench: {name} launches {paths[name]}, "
+                                 f"the code implies {expect}")
+    for name, part in (("funnel", funnel), ("gauss", gauss)):
+        if part["accept_launches_all"] != [timed] * bench.TIMED_RUNS:
+            raise AssertionError(f"bench: {name} timed runs launched "
+                                 f"{part['accept_launches_all']}, want "
+                                 f"{timed} each")
+    return paths
+
+
 # ------------------------------------------------------------ spline line
 def build_spline_flow(gen, device):
     from normalizingflow_tpu_torch import NormalizingFlow
@@ -1251,7 +1420,7 @@ def spline_line(seed, device="cuda"):
         ess_min_bulk_x=float(bulk_x.min()),
         ess_min_bulk_x2=float(bulk_x2.min()), ess_min=ess_min,
         ess_tail_hardest_coord=ess_tail, sample_s=sample_s,
-        ess_per_s=ess_min / sample_s,
+        ess_per_s_with_warmup=ess_min / sample_s,
         ms_per_transition=sample_s * 1e3 / transitions)
     log("spline: " + json.dumps(stats))
 
@@ -2608,10 +2777,11 @@ def main(argv=None):
     depth_cut("main", "draws", draws, FULL_DRAWS)
     keep_dir = tempfile.TemporaryDirectory()  # trained flows, for later
     keep = Path(keep_dir.name)
-    funnel, flow = main_path(train_steps, draws, args.seed)
+    funnel, flow, main_stats = main_path(train_steps, draws, args.seed)
     nuts_draws = FULL_NUTS_DRAWS if args.full else NUTS_DRAWS
     depth_cut("nuts_funnel", "draws", nuts_draws, FULL_NUTS_DRAWS)
     nuts = dict(nuts_funnel=nuts_funnel(flow, nuts_draws, args.seed))
+    bench_paths = bench_phase(flow, main_stats, keep, args.seed)
     torch.save(flow.state_dict(), keep / "funnel.pt")
     del flow
     nuts["nuts_eight_schools"] = nuts_eight_schools(args.seed)
@@ -2648,10 +2818,11 @@ def main(argv=None):
                 for key, r in checks.items()])
 
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
-                       polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel)
+                       polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel,
+                       **bench_paths)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
-                   for n, d in KERNEL_SHAPES[-3:] + [(SMC_PARTICLES, DIM)]}
+                   for n, d in KERNEL_SHAPES[-4:] + [(SMC_PARTICLES, DIM)]}
 
     main_shape = (SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS, True, "sym")
     kernels = [

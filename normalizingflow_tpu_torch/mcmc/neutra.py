@@ -11,6 +11,7 @@ chain-batched form: one flow call per leapfrog step for all chains.
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -38,6 +39,21 @@ class NeutraResult(NamedTuple):
     step_size: torch.Tensor
 
 
+@contextlib.contextmanager
+def frozen(flow):
+    """The flow's parameters take no gradient inside (HMC needs the
+    gradient in z only); their flags are restored after."""
+    params = list(flow.parameters())
+    flags = [p.requires_grad for p in params]
+    try:
+        for p in params:
+            p.requires_grad_(False)
+        yield flow
+    finally:
+        for p, f in zip(params, flags):
+            p.requires_grad_(f)
+
+
 def push_to_data(flow, zs, chunk=PUSH_CHUNK):
     """x = flow.inverse(z) for latents zs (..., dim), `chunk` rows a call.
 
@@ -61,12 +77,8 @@ def neutra_hmc(generator, flow, target, num_chains, num_samples,
     to data space PUSH_CHUNK rows at a time.
     """
     device = entry_device(device)
-    params = list(flow.parameters())
-    check_on(device, *params)
-    flags = [p.requires_grad for p in params]
-    try:
-        for p in params:
-            p.requires_grad_(False)
+    check_on(device, *flow.parameters())
+    with frozen(flow):
         z0 = flow.prior.sample(num_chains, generator=generator)
         result = run_hmc(
             generator, pullback_logprob_batched(flow, target), z0,
@@ -75,9 +87,6 @@ def neutra_hmc(generator, flow, target, num_chains, num_samples,
             thin=thin, device=device)
         zs = result.samples
         x = push_to_data(flow, zs)
-    finally:
-        for p, f in zip(params, flags):
-            p.requires_grad_(f)
     return NeutraResult(
         samples_x=x,
         samples_z=zs,

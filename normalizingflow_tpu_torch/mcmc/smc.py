@@ -31,6 +31,7 @@ from .hmc import (
     hmc_transition,
     transition_draws,
 )
+from .neutra import frozen
 
 BISECTION_STEPS = 30
 STEP_JITTER = 0.2
@@ -164,16 +165,9 @@ def flow_smc(generator, flow, target, n_particles, z=None, device="cuda",
     density to `target.log_prob`. The flow's parameters do not require
     grad during the run, and are restored afterwards."""
     device = entry_device(device)
-    params = list(flow.parameters())
-    check_on(device, *params)
-    flags = [p.requires_grad for p in params]
-    try:
-        for p in params:
-            p.requires_grad_(False)
+    check_on(device, *flow.parameters())
+    with frozen(flow):
         with torch.no_grad():
             x0, _, _ = flow.sample(n_particles, generator=generator, z=z)
         return run_smc(generator, x0, flow.log_prob, target.log_prob,
                        device=device, **smc_kwargs)
-    finally:
-        for p, f in zip(params, flags):
-            p.requires_grad_(f)

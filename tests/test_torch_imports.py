@@ -8,6 +8,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from normalizingflow_tpu_torch import bench, bench_scaling
 from normalizingflow_tpu_torch.apps.sample_data import generate
 from normalizingflow_tpu_torch.config import (
     Config,
@@ -37,11 +38,12 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu",
+                                    "bench", "bench_scaling", "tools"))
 need = {pkg.__name__ + "." + m for m in (
     "targets.eam", "targets.phi4", "targets.gff", "apps.polymer",
     "mcmc.nuts", "mcmc.smc", "parallel.mesh", "parallel.sharded",
-    "utils.profiling")}
+    "utils.profiling", "utils.mfu", "bench", "bench_scaling")}
 print(len(names), sorted(need - set(names)), bad)
 """
 
@@ -86,6 +88,10 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
         collect_hmc_data(flow, NealsFunnel(2), n_chains=2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         flow_smc(gen, flow, NealsFunnel(2), 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench_scaling.main()
 
 
 @pytest.mark.parametrize("device", ["tpu", "cuda", "cuda:1", None])
