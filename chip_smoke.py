@@ -38,12 +38,12 @@ Phases, each printing its own line; any failure exits non-zero:
               |v_mean| < 0.5, |v_var - 9| < 3 is reported, not enforced
               (this configuration misses it: ROADMAP Queue 3);
   6. fe_lj  : the free-energy pipeline on configs/LJ.yaml at its full width
-              and depth (NSF_AR, 2 x SplineAR(96, 32 bins, hidden 354,
+              (NSF_AR, 2 x SplineAR(96, 32 bins, hidden 354,
               periodic), EinsteinCrystal prior, alpha 1000), through the
               port's CLI mains on a copy of the config whose paths point
               into a temporary directory: apps.sample_data (2000 frames,
-              acceptance, finite and in the box), apps.train (8000 epochs;
-              the last chunk's mean log-prob above the first's), apps.test
+              acceptance, finite and in the box), apps.train (LJ_EPOCHS,
+              cut from the config's 8000; the last chunk's mean log-prob above the first's), apps.test
               (fe_diff with relaxation at 500 samples: four finite
               estimates and finite relaxed frames; emus, MBAR capped at
               its 500 iterations, is reported beside MBAR at 5000 and
@@ -131,6 +131,22 @@ The multi-device layer (parallel/) and the last modules run after them:
               trace names the accept kernel and the matmuls), and Planar,
               Radial and OneByOneConv trained on Gaussian_rnvp.yaml (loss
               decreasing; Radial and OneByOneConv round-trip).
+ 13. jax_resume: a training run of the JAX package continued on the card.
+              configs/Gaussian_rnvp.yaml uncut (RealNVP, 2 layers, hidden
+              80, 40-d, batch 60): the JAX package's training state at
+              epoch 2000 (tests/data/jax_gaussian_rnvp.msgpack.last, from
+              tools/jax_resume_fixture.py: params, optax's Adam state, key,
+              epoch, losses) copied into a temporary model_dir as
+              `{name}.msgpack.last`; apps.train --resume continues it to
+              the config's 3000 epochs, then apps.test, with no
+              --checkpoint, evaluates the port's resumed `.pt`. Gates: the
+              resume names the `.msgpack.last` and epoch 2000; the losses
+              are the fixture's followed by the new chunks'; the first new
+              chunk's mean log-prob within RESUME_GAP nats of the fixture's
+              last; `.pt` and `.pt.last` written; four finite estimates,
+              |bar| <= 0.05 and |emus - bar| <= 0.01 (exact answer 0); no
+              kernel launched (a RealNVP flow and its apps.test launch
+              none).
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -141,6 +157,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -236,7 +253,11 @@ BAR_GATE = 0.05
 # Depths cut so that the whole run stays near 650 s on one H100 on a slow
 # host (the limit is 1200 s; the paths are host-bound and their seconds vary
 # ~2x between hosts). Uncut, Phi4's reverse-KL fine-tune alone took 758 s
-# (379 ms a step) and the run 1462 s. Widths are never cut.
+# (379 ms a step) and the run 1462 s. With LJ at its 8000 epochs the run
+# took 1056 s on the slowest host seen (every host-bound phase ~1.5x a
+# fast host's; LJ's training 128 s of it), so LJ is cut as well. Widths are
+# never cut.
+LJ_EPOCHS = 4000              # LJ.yaml: 8000
 EINSTEIN_EPOCHS = 3000        # config: 8000
 SLICE_FRAMES = 10000          # sample_data / apps.polymer data frames
 FE_EPOCHS = 2500              # Fe_400K.yaml: 15000
@@ -306,6 +327,12 @@ PAR_CHAIN_TOL, PAR_CHAIN_SHARE = 1e-3, 1e-3
 # two training chunks of 500
 ELEMENTARY = ("Planar", "Radial", "OneByOneConv")
 ELEMENTARY_EPOCHS = 1000
+# The jax_resume phase: the JAX package's training state of
+# Gaussian_rnvp.yaml at epoch JAX_EPOCH, resumed uncut. A fresh flow's first
+# chunk lies tens of nats below a trained one's, so a resume that lost the
+# params or the optimizer's state shows against RESUME_GAP.
+JAX_FIXTURE = ROOT / "tests" / "data" / "jax_gaussian_rnvp.msgpack.last"
+JAX_EPOCH, RESUME_GAP = 2000, 1.0
 
 
 def log(*a):
@@ -1847,9 +1874,10 @@ def fe_cli_phase(label, name, seed, nframes, train=None, mbar_tol=None,
 
 def fe_lj_phase(seed):
     """configs/LJ.yaml through sample_data, train, test and fe testing."""
+    depth_cut("fe_lj", "train epochs", LJ_EPOCHS, 8000)
     _, launches, err, err_vjp = fe_cli_phase(
-        "fe_lj", "LJ", seed, FE_FRAMES, mbar_tol=0.05,
-        record=JAX_RECORD["LJ"])
+        "fe_lj", "LJ", seed, FE_FRAMES, train={"max_epochs": LJ_EPOCHS},
+        mbar_tol=0.05, record=JAX_RECORD["LJ"])
     return dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp)
 
 
@@ -2726,6 +2754,76 @@ def parallel_phase(keep, cfg, seed):
                                        for k in w1["launches"]}}
 
 
+def jax_resume_phase():
+    """configs/Gaussian_rnvp.yaml: the JAX package's training state at
+    epoch JAX_EPOCH continued by apps.train --resume to the config's
+    epochs, then apps.test on the port's `.pt`; the gates of the module
+    docstring's phase 13. Returns the launches by kernel."""
+    from normalizingflow_tpu_torch.apps import test as app_test
+    from normalizingflow_tpu_torch.apps import train as app_train
+    from normalizingflow_tpu_torch.config import load_config
+    from normalizingflow_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        read_jax_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    fixture_losses = [float(v) for v in
+                      read_jax_checkpoint(JAX_FIXTURE)["losses"]]
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        cfg_path = fe_config("Gaussian_rnvp", tmp)
+        cfg = load_config(cfg_path)
+        name, epochs = cfg.dataset.name, cfg.train_parameters.max_epochs
+        model_dir = Path(cfg.output.model_dir)
+        model_dir.mkdir(parents=True)
+        shutil.copyfile(JAX_FIXTURE, model_dir / f"{name}.msgpack.last")
+        reset_launch_counts()
+        train = Step(app_train.main, [cfg_path, "--resume"])
+        train.expect("jax_resume train")
+        written = sorted(p.name for p in model_dir.iterdir())
+        losses = [float(v) for v in load_checkpoint(
+            str(model_dir / f"{name}.pt.last"))["losses"]]
+        test = Step(app_test.main, [cfg_path])
+        test.expect("jax_resume test")
+        out = estimates(tmp / "testing_dir" / f"fe_{name}.npz")
+    four = {k: float(out[k]) for k in ("bar", "md", "nf", "emus")}
+    launches = {k: train.launches[k] + test.launches[k]
+                for k in ("accept_select", "rqs", "rqs_vjp")}
+    steps = epochs - JAX_EPOCH
+    new_chunks = -(-steps // 500)  # apps.train's chunks of 500 steps
+    stats = dict(config="Gaussian_rnvp", flow=cfg.flow.type,
+                 layers=cfg.flow.nlayers, hidden=cfg.flow.hidden_dim,
+                 fixture_epoch=JAX_EPOCH, max_epochs=epochs,
+                 fixture_last_loss=fixture_losses[-1],
+                 first_resumed_loss=losses[len(fixture_losses)],
+                 losses=losses, written=written, train_s=train.seconds,
+                 train_ms_per_step=train.seconds * 1e3 / steps,
+                 test_s=test.seconds, **four, launches=launches,
+                 phase_s=time.perf_counter() - t_phase)
+    log("jax_resume: " + json.dumps(stats))
+    if f"{name}.msgpack.last at epoch {JAX_EPOCH}" not in train.printed:
+        raise AssertionError("jax_resume: apps.train did not resume the "
+                             "JAX checkpoint at its epoch")
+    if losses[:len(fixture_losses)] != fixture_losses or len(losses) != \
+            len(fixture_losses) + new_chunks:
+        raise AssertionError(f"jax_resume: losses {losses}, the fixture's "
+                             f"{fixture_losses} + {new_chunks} chunks")
+    if not abs(stats["first_resumed_loss"] - fixture_losses[-1]) \
+            <= RESUME_GAP:
+        raise AssertionError(f"jax_resume: the first resumed chunk "
+                             f"{stats['first_resumed_loss']} is not within "
+                             f"{RESUME_GAP} of {fixture_losses[-1]}")
+    if not {f"{name}.pt", f"{name}.pt.last"} <= set(written):
+        raise AssertionError(f"jax_resume: model_dir holds {written}")
+    if not all(math.isfinite(v) for v in four.values()):
+        raise AssertionError(f"jax_resume estimates not finite: {four}")
+    if not (abs(four["bar"]) <= 0.05
+            and abs(four["emus"] - four["bar"]) <= 0.01):
+        raise AssertionError(f"jax_resume off the exact 0: {four}")
+    return launches
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -2802,6 +2900,7 @@ def main(argv=None):
     torch.cuda.empty_cache()
     parallel = parallel_phase(keep, phi4_cfg, args.seed)
     keep_dir.cleanup()
+    jax_resume = jax_resume_phase()
     log(f"run: {time.perf_counter() - t0:.1f} s from the build's start")
 
     def entry(name, source, replaces, by_path, timed, errs, checks):
@@ -2819,7 +2918,7 @@ def main(argv=None):
 
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
                        polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel,
-                       **bench_paths)
+                       jax_resume=jax_resume, **bench_paths)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
                    for n, d in KERNEL_SHAPES[-4:] + [(SMC_PARTICLES, DIM)]}

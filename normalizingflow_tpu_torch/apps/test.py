@@ -3,9 +3,10 @@
 `python -m normalizingflow_tpu_torch.apps.test <config.yaml>
 [--checkpoint PATH]`
 
-Loads the trained model (`{model_dir}/{name}.pt`, or the checkpoint that
-`--checkpoint` names: a `.msgpack` path is read as the JAX package's
-checkpoint, any other as the port's), runs `fe_diff` at 500
+Loads the trained model (`{model_dir}/{name}.pt`, else the JAX package's
+`{model_dir}/{name}.msgpack`; or the checkpoint that `--checkpoint` names:
+a `.msgpack` path is read as the JAX package's checkpoint, any other as the
+port's), runs `fe_diff` at 500
 samples (with relaxation for the particle systems, as the reference does)
 and prints the four estimates. Beside the Q plot it writes
 `{testing_dir}/fe_{name}.npz`: the estimates, the work matrices and the
@@ -24,9 +25,13 @@ import torch
 
 from ..config import config_device, load_config, setup_model
 from ..params import from_jax, to_numpy
-from ..train.checkpoint import load_checkpoint, load_jax_checkpoint
+from ..train.checkpoint import (
+    is_jax_checkpoint,
+    load_checkpoint,
+    load_jax_checkpoint,
+)
 from .fe_eval import fe_diff
-from .train import checkpoint_path
+from .train import checkpoint_path, jax_checkpoint_path
 
 RELAXED_POTENTIALS = ("LJ", "Fe", "EAM")
 
@@ -35,11 +40,17 @@ def load_trained(cfg, mode="testing", device=None, checkpoint=None):
     """(flow with the checkpoint's params, data potential, cfg). The
     checkpoint is `checkpoint` if given (a `.msgpack` path is the JAX
     package's format, read by load_jax_checkpoint), else the port's
-    `{model_dir}/{name}.pt`."""
+    `{model_dir}/{name}.pt`, else the JAX package's `{name}.msgpack` in the
+    same model_dir (its best model, fine-tuned or not)."""
     device = config_device(cfg) if device is None else device
     flow, potential, cfg = setup_model(cfg, mode=mode, device=device)
     path = checkpoint or checkpoint_path(cfg)
-    if path.endswith(".msgpack"):
+    if checkpoint is None and not os.path.exists(path) and os.path.exists(
+            jax_checkpoint_path(cfg)):
+        path = jax_checkpoint_path(cfg)
+        print(f"no {checkpoint_path(cfg)}: evaluating the JAX package's "
+              f"{path}", file=sys.stderr)
+    if is_jax_checkpoint(path):
         load_jax_checkpoint(path, flow)
     else:
         state = load_checkpoint(path, {"params": to_numpy(flow)})

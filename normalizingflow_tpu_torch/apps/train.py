@@ -5,7 +5,11 @@
 
 Forward-KL training on the config's data (train.fused.train_flow_fused),
 with `{model_dir}/{name}.pt` as the best-model checkpoint and `.pt.last`
-as the full training state. `--resume` continues exactly from `.pt.last`.
+as the full training state. `--resume` continues exactly from `.pt.last`;
+where there is none, it continues the JAX package's run from its
+`{name}.msgpack.last` in the same model_dir (params, Adam state, epoch and
+losses; the batches from then on are the port's own), and it starts fresh
+only where neither exists. Either way the port writes its own `.pt` files.
 With `--hmc-mix` or `train_parameters.hmc_mix`, the acceptance-gated HMC
 mixer relaxes flow samples on the target (mcmc.relaxation.
 collect_hmc_data); with `rkl_finetune_steps`, a reverse-KL fine-tune on
@@ -33,6 +37,22 @@ def checkpoint_path(cfg):
     return os.path.join(cfg.output.model_dir, f"{cfg.dataset.name}.pt")
 
 
+def jax_checkpoint_path(cfg):
+    """The JAX package's best-model checkpoint of the config's run."""
+    return os.path.join(cfg.output.model_dir, f"{cfg.dataset.name}.msgpack")
+
+
+def resume_path(cfg):
+    """The training state `--resume` continues from: the port's
+    `{name}.pt.last`, else the JAX package's `{name}.msgpack.last`, else
+    None."""
+    for path in (checkpoint_path(cfg) + ".last",
+                 jax_checkpoint_path(cfg) + ".last"):
+        if os.path.exists(path):
+            return path
+    return None
+
+
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     resume = "--resume" in argv
@@ -51,11 +71,11 @@ def main(argv=None):
     tp = cfg.train_parameters
     os.makedirs(cfg.output.model_dir, exist_ok=True)
     ckpt = checkpoint_path(cfg)
-    resume_from = ckpt + ".last" if resume else None
-    if resume_from and not os.path.exists(resume_from):
-        print(f"--resume: no checkpoint at {resume_from}; starting fresh",
+    resume_from = resume_path(cfg) if resume else None
+    if resume and resume_from is None:
+        print(f"--resume: no checkpoint at {ckpt}.last or "
+              f"{jax_checkpoint_path(cfg)}.last; starting fresh",
               file=sys.stderr)
-        resume_from = None
 
     # Mixing needs a target with an energy to relax on; a pure trajectory
     # dataset has none.
@@ -84,6 +104,9 @@ def main(argv=None):
         scheduler=tp.scheduler, gamma=tp.lr_scheduler_gamma,
         output_freq=tp.output_freq, checkpoint_path=ckpt,
         resume_from=resume_from, hmc_mixer=hmc_mixer, device=device)
+    if resume_from:
+        print(f"resumed from {resume_from} at epoch "
+              f"{history['start_epoch']}")
     if tp.rkl_finetune_steps:
         if hasattr(potential, "log_prob"):
             from ..train.objectives import rkl_finetune

@@ -52,25 +52,34 @@ def _map(fn, *trees):
     return fn(*trees)
 
 
-def from_jax(module, tree):
-    """Copy a JAX params tree (numpy leaves) into `module` in place.
+def _layer(leaf, i, n):
+    """Layer i of a Repeat's stacked leaf, whose leading axis must be n."""
+    if np.shape(leaf)[:1] != (n,):
+        raise ValueError(f"Repeat of {n} layers: stacked leaf of shape "
+                         f"{np.shape(leaf)}")
+    return leaf[i]
 
-    Values are cast to each parameter's dtype and device. Raises if the
-    tree's structure, keys or shapes differ from the module's.
-    """
+
+def _pairs(module, tree):
+    """(parameter, leaf) pairs of `module` and a JAX params-shaped tree, in
+    the order of module.parameters(): a module's own parameters in
+    registration order, then its children's (Chain and Repeat layers in
+    order)."""
     module = _root(module)
     if isinstance(module, Repeat):
+        n = len(module.bijectors)
         for i, layer in enumerate(module.bijectors):
-            from_jax(layer, _map(lambda a, i=i: np.asarray(a)[i], tree))
-        return module
+            yield from _pairs(layer, _map(lambda a, i=i: _layer(a, i, n),
+                                          tree))
+        return
     if isinstance(module, Chain):
         if not isinstance(tree, (tuple, list)) or len(tree) != len(
                 module.bijectors):
             raise ValueError(
                 f"expected a sequence of {len(module.bijectors)} param trees")
         for child, sub in zip(module.bijectors, tree):
-            from_jax(child, sub)
-        return module
+            yield from _pairs(child, sub)
+        return
     own = dict(module.named_parameters(recurse=False))
     kids = dict(module.named_children())
     if not isinstance(tree, dict) or set(tree) != set(own) | set(kids):
@@ -78,18 +87,44 @@ def from_jax(module, tree):
             f"{type(module).__name__}: params keys "
             f"{sorted(tree) if isinstance(tree, dict) else type(tree)} != "
             f"{sorted(set(own) | set(kids))}")
-    for name, leaf in tree.items():
-        if name in kids:
-            from_jax(kids[name], leaf)
-            continue
-        p = own[name]
-        arr = np.asarray(leaf)
-        if tuple(arr.shape) != tuple(p.shape):
+    for name, p in own.items():
+        leaf = tree[name]
+        if tuple(np.shape(leaf)) != tuple(p.shape):
             raise ValueError(
-                f"{name}: shape {arr.shape} != parameter shape "
+                f"{name}: shape {tuple(np.shape(leaf))} != parameter shape "
                 f"{tuple(p.shape)}")
-        with torch.no_grad():
-            p.copy_(torch.from_numpy(np.array(arr)))
+        yield p, leaf
+    for name, kid in kids.items():
+        yield from _pairs(kid, tree[name])
+
+
+def jax_leaves(module, tree):
+    """The leaves of a JAX params-shaped tree in the order of
+    `module.parameters()`, each checked against its parameter's shape.
+
+    The tree is the params themselves or any tree of their structure, such
+    as optax's Adam moments `mu` and `nu`. Leaves are returned as they are
+    (numpy arrays, or tensors where numpy has no dtype, as for bfloat16);
+    a Repeat's stacked leaves are split into its layers. Raises if the
+    tree's structure, keys or shapes differ from the module's.
+    """
+    pairs = list(_pairs(module, tree))
+    if [id(p) for p, _ in pairs] != [id(p) for p in module.parameters()]:
+        raise ValueError(f"{type(module).__name__} has parameters outside "
+                         f"its bijectors' params tree")
+    return [leaf for _, leaf in pairs]
+
+
+def from_jax(module, tree):
+    """Copy a JAX params tree (numpy leaves) into `module` in place.
+
+    Values are cast to each parameter's dtype and device. Raises if the
+    tree's structure, keys or shapes differ from the module's.
+    """
+    with torch.no_grad():
+        for p, leaf in zip(module.parameters(), jax_leaves(module, tree)):
+            p.copy_(leaf if isinstance(leaf, torch.Tensor)
+                    else torch.from_numpy(np.array(leaf)))
     return module
 
 

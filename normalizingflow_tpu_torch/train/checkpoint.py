@@ -14,14 +14,17 @@ tensors, containers and numbers loads with `weights_only=True`. The apps
 name it `{name}.pt`, beside the JAX package's `{name}.msgpack`, so the two
 never collide.
 
-`load_jax_checkpoint` reads the JAX package's own files, so the port can
-evaluate a model the JAX package trained. They are flax.serialization
-msgpack: tuples and lists as maps keyed "0", "1", ...; arrays as msgpack
-extension 1, the packed (shape, dtype name, C-order bytes); numpy scalars
-as extension 3, the same packing; complex numbers as extension 2, (re,
-im); arrays over flax's chunk size as a map of chunks. Resuming training
-from a JAX optimizer state is not supported: its moments follow optax's
-tree, not the port's Adam.
+`read_jax_checkpoint` reads the JAX package's own files (`{name}.msgpack`,
+the best model, and `{name}.msgpack.last`, the training state), so the port
+can evaluate a model the JAX package trained and continue its training run
+(train_flow_fused maps optax's Adam state through
+loop.adam_state_from_optax and seeds its generator by `jax_key_seed`).
+They are flax.serialization msgpack: tuples and lists as maps keyed "0",
+"1", ...; arrays as msgpack extension 1, the packed (shape, dtype name,
+C-order bytes); numpy scalars as extension 3, the same packing; complex
+numbers as extension 2, (re, im); arrays over flax's chunk size as a map
+of chunks; None (the fine-tuned best model's optimizer state and key) as
+nil.
 """
 
 from __future__ import annotations
@@ -87,9 +90,15 @@ def load_checkpoint(path, template=None):
     return state if template is None else _cast_tree(state, template)
 
 
+def is_jax_checkpoint(path):
+    """Whether `path` names one of the JAX package's checkpoints."""
+    return str(path).endswith((".msgpack", ".msgpack.last"))
+
+
 def _jax_array(data):
-    """A numpy array from flax's packed (shape, dtype name, bytes); a
-    bfloat16 array, which numpy has no dtype for, as a torch tensor."""
+    """A writable numpy array from flax's packed (shape, dtype name,
+    bytes); a bfloat16 array, which numpy has no dtype for, as a torch
+    tensor."""
     import msgpack
 
     shape, name, buffer = msgpack.unpackb(data, raw=True)
@@ -98,7 +107,8 @@ def _jax_array(data):
         bits = (torch.frombuffer(bytearray(buffer), dtype=torch.int16)
                 if buffer else torch.empty(0, dtype=torch.int16))
         return bits.view(torch.bfloat16).reshape(shape)
-    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(shape)
+    return np.frombuffer(bytearray(buffer),
+                         dtype=np.dtype(name)).reshape(shape)
 
 
 def _jax_ext(code, data):
@@ -121,7 +131,10 @@ def _jax_tree(node):
         return node
     if "__msgpack_chunked_array__" in node:
         shape = tuple(_jax_tree(node["shape"]))
-        return np.concatenate(_jax_tree(node["chunks"])).reshape(shape)
+        chunks = _jax_tree(node["chunks"])
+        if isinstance(chunks[0], torch.Tensor):
+            return torch.cat(chunks).reshape(shape)
+        return np.concatenate(chunks).reshape(shape)
     tree = {k: _jax_tree(v) for k, v in node.items()}
     if tree and list(tree) == [str(i) for i in range(len(tree))]:
         return tuple(tree.values())
@@ -138,6 +151,17 @@ def read_jax_checkpoint(path):
         state = msgpack.unpackb(fh.read(), ext_hook=_jax_ext, raw=False,
                                 strict_map_key=False)
     return _jax_tree(state)
+
+
+def jax_key_seed(key):
+    """The port's seed for a JAX PRNG key (two uint32 words k0, k1):
+    (k0 << 32) | k1. torch has no threefry, so a run seeded this way draws
+    other numbers than JAX's continuation would; the rule only makes them
+    a function of the checkpoint."""
+    if key is None:
+        raise ValueError("the checkpoint holds no PRNG key")
+    k0, k1 = (int(w) for w in np.asarray(key, dtype=np.uint32).reshape(2))
+    return (k0 << 32) | k1
 
 
 def load_jax_checkpoint(path, flow):

@@ -40,8 +40,15 @@ import torch
 
 from ..device import check_on, entry_device
 from ..params import from_jax, to_numpy
-from .checkpoint import copy_checkpoint, load_checkpoint, save_checkpoint
-from .loop import make_optimizer
+from .checkpoint import (
+    copy_checkpoint,
+    is_jax_checkpoint,
+    jax_key_seed,
+    load_checkpoint,
+    read_jax_checkpoint,
+    save_checkpoint,
+)
+from .loop import adam_state_from_optax, make_optimizer
 from .objectives import forward_kl_loss
 
 logger = logging.getLogger("normalizingflow_tpu_torch.train")
@@ -76,9 +83,14 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
 
     `resume_from`: a `.last` checkpoint of an earlier run; params, the
     optimizer, the generator's state, the epoch and the losses are restored
-    and the run continues as the unbroken run would have. If its epoch has
-    reached `max_epochs`, the flow gets the checkpointed params and the
-    history says `already_complete`.
+    and the run continues as the unbroken run would have. It may also be
+    the JAX package's `.msgpack.last`: its params, optax's Adam moments and
+    count (so the schedule continues at the same step), epoch and losses
+    are restored, and `generator` is seeded from its PRNG key
+    (checkpoint.jax_key_seed), so the batches differ from JAX's own
+    continuation. If its epoch has reached `max_epochs`, the flow gets the
+    checkpointed params and the history says `already_complete`. The
+    history's `start_epoch` is the epoch the run started from.
 
     `hmc_mixer(start_epoch) -> (data (m, dim), acceptance)` is called every
     `mix_every` epochs (default 2 * output_freq), at chunk starts; it owns
@@ -100,10 +112,17 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
     losses = []
     best_logprob = -math.inf
     if resume_from:
-        state = load_checkpoint(resume_from, {"params": to_numpy(flow)})
-        from_jax(flow, state["params"])
-        optimizer.load_state_tree(state["opt_state"])
-        generator.set_state(state["generator"])
+        if is_jax_checkpoint(resume_from):
+            state = read_jax_checkpoint(resume_from)
+            from_jax(flow, state["params"])
+            optimizer.load_state_tree(
+                adam_state_from_optax(flow, state["opt_state"]))
+            generator.manual_seed(jax_key_seed(state["key"]))
+        else:
+            state = load_checkpoint(resume_from, {"params": to_numpy(flow)})
+            from_jax(flow, state["params"])
+            optimizer.load_state_tree(state["opt_state"])
+            generator.set_state(state["generator"])
         start_epoch = int(state["epoch"])
         losses = [float(v) for v in np.asarray(state["losses"])]
         # the reported log-prob is -loss, so the gate continues from there
@@ -136,7 +155,7 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
                     start_epoch, max_epochs)
         return {"losses": np.asarray(losses), "best_logprob": best_logprob,
                 "steps_per_s": 0.0, "already_complete": True,
-                "adam_mu_dtype": mu_name}
+                "adam_mu_dtype": mu_name, "start_epoch": start_epoch}
 
     mix_data, use_mix = None, False
     mix_log = []
@@ -198,7 +217,7 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
     history = {"losses": np.asarray(losses), "best_logprob": best_logprob,
                "steps_per_s": (max_epochs - start_epoch)
                / (time.time() - t0),
-               "adam_mu_dtype": mu_name}
+               "adam_mu_dtype": mu_name, "start_epoch": start_epoch}
     if mixing:
         history["hmc_mixing"] = mix_log
     return history

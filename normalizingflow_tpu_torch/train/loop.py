@@ -33,6 +33,7 @@ import math
 import torch
 
 from ..device import check_on, entry_device
+from ..params import jax_leaves
 from .objectives import reverse_kl
 
 
@@ -164,6 +165,34 @@ class Adam(torch.optim.Optimizer):
             self.state[p]["mu"].copy_(torch.as_tensor(mu))
             self.state[p]["nu"].copy_(torch.as_tensor(nu))
         self.count = int(tree["count"])
+
+
+def adam_state_from_optax(flow, opt_state):
+    """optax.adam's state, as read_jax_checkpoint decodes it, as an
+    `Adam.state_tree()` of `flow`'s parameters, for `load_state_tree`.
+
+    The state is optax's chain of (ScaleByAdamState(count, mu, nu),
+    ScaleByScheduleState(count)) under a schedule, or EmptyState() in
+    place of the second under a constant rate: decoded, a pair of dicts
+    ({"count", "mu", "nu"}, {"count"} or {}). mu and nu have the params'
+    tree structure and come out in parameter order (params.jax_leaves;
+    bfloat16 moments stay tensors, cast on loading). Adam's count drives
+    both the bias correction and the schedule, so the two counts must
+    agree. Raises where they do not, where the state is no such pair, or
+    where mu or nu do not fit the flow."""
+    if not isinstance(opt_state, (tuple, list)) or len(opt_state) != 2:
+        raise ValueError(f"not an optax.adam state: {type(opt_state)}")
+    adam, sched = opt_state
+    if not (isinstance(adam, dict) and set(adam) == {"count", "mu", "nu"}
+            and isinstance(sched, dict) and set(sched) <= {"count"}):
+        raise ValueError("not an optax.adam state: (ScaleByAdamState, "
+                         "ScaleByScheduleState | EmptyState) expected")
+    count = int(adam["count"])
+    if "count" in sched and int(sched["count"]) != count:
+        raise ValueError(f"optax's Adam count {count} != its schedule's "
+                         f"{int(sched['count'])}")
+    return {"count": count, "mu": jax_leaves(flow, adam["mu"]),
+            "nu": jax_leaves(flow, adam["nu"])}
 
 
 def _host(t):

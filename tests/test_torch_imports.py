@@ -38,8 +38,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "normalizingflow_tpu",
-                                    "bench", "bench_scaling", "tools"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "normalizingflow_tpu", "bench",
+                                    "bench_scaling", "tools"))
 need = {pkg.__name__ + "." + m for m in (
     "targets.eam", "targets.phi4", "targets.gff", "apps.polymer",
     "mcmc.nuts", "mcmc.smc", "parallel.mesh", "parallel.sharded",
@@ -62,6 +63,8 @@ def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "import jax" not in src and "normalizingflow_tpu." not in src \
         .replace("normalizingflow_tpu_torch", "")
+    for name in ("flax", "optax", "jax_resume_fixture"):
+        assert f"import {name}" not in src and f"from {name}" not in src
 
 
 def test_entry_points_default_to_cuda_and_do_not_fall_back():
