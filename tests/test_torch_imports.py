@@ -59,6 +59,34 @@ def test_port_imports_without_jax():
     assert int(count) >= 20  # every submodule was imported
 
 
+IMPORT_PARITY_TOOL = """
+import sys
+import tools.torch_parity
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "normalizingflow_tpu", "chip_smoke")
+             or m == "tools.parity")
+print(bad)
+"""
+
+
+def test_parity_tool_imports_no_jax():
+    """tools/torch_parity.py, which chip_smoke.py imports, loads neither
+    JAX nor the JAX package nor its twin tools/parity.py, and not
+    chip_smoke; its source names none of them."""
+    out = subprocess.run([sys.executable, "-c", IMPORT_PARITY_TOOL],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    src = (ROOT / "tools" / "torch_parity.py").read_text()
+    assert "normalizingflow_tpu." not in src.replace(
+        "normalizingflow_tpu_torch", "")
+    for name in ("jax", "flax", "optax", "chip_smoke", "tools.parity",
+                 "tools import parity"):
+        assert f"import {name}" not in src and f"from {name}" not in src
+
+
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "import jax" not in src and "normalizingflow_tpu." not in src \

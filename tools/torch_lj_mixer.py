@@ -32,15 +32,14 @@ import torch  # noqa: E402
 
 from chip_smoke import (  # noqa: E402
     FE_FRAMES,
-    JAX_RECORD,
     SpanTimer,
     Step,
     checkpoint_timer,
     device_line,
     estimates,
     fe_config,
-    reset_launch_counts,
 )
+from normalizingflow_tpu_torch.ops import reset_launch_counts  # noqa: E402
 
 
 def main(argv=None):
@@ -98,7 +97,8 @@ def main(argv=None):
         **four,
         launches={k: data.launches[k] + trained.launches[k]
                   + test.launches[k] for k in data.launches},
-        jax_record=JAX_RECORD["LJ"] + "; 16 mixer calls, 5 gate passes")
+        jax_record="BAR dF over 3 datasets 9.5778 +- 0.1195 "
+                   "kT/particle; 16 mixer calls, 5 gate passes")
     print("lj_mixer: " + json.dumps(stats), flush=True)
     if not mix or not all(math.isfinite(v) for v in four.values()):
         print("lj_mixer: the mixer did not run, or an estimate is not "
