@@ -53,7 +53,9 @@ Phases, each printing its own line; any failure exits non-zero:
               kernel at each step; each trained layer's RQS kernels against
               the float64 plain versions, and a round trip; bar within
               0.36 of the JAX record 9.5778 (a fault detector at the cut
-              depth, not a hold on its bias);
+              depth, not a hold on its bias); then, on the trained flow and
+              its 400 held-out frames, tools/torch_lj_permutation.py's
+              diagnose (phase 15);
   7. fe_einstein: configs/Einstein.yaml, whose exact answer is 0:
               apps.train (its 8000 epochs cut to EINSTEIN_EPOCHS, on the
               analytic target's samples), then apps.test: |bar| <= 0.05,
@@ -161,6 +163,17 @@ The multi-device layer (parallel/) and the last modules run after them:
               layer's RQS kernels (K = 10) against the float64 plain
               versions on 2000 target draws, forward, inverse and VJP, and
               a round trip.
+ 15. fit_studies: the fit-quality studies' tools in this process.
+              tools/torch_fit_sweep.py's run_variant runs the `rkl` variant
+              on configs/Gaussian.yaml (FIT_EPOCHS, cut from 3000, then
+              FIT_RKL_STEPS reverse-KL steps, cut from 2000) and its
+              held-out gap against 2000 target draws: |gap| <= 0.05 a
+              particle. tools/torch_gm_fit_sweep.py's run of `ref` (the
+              reference's 1 layer, GM_EPOCHS of its 2000 epochs): |nf| <=
+              0.05. The permutation diagnostic of phase 6 on LJ: mean U of
+              the raw and relabeled frames within 1e-3; the recovered share
+              of the gap is printed. Exact launch counts in each of the
+              three (both RQS kernels; no HMC).
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -231,16 +244,27 @@ RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
 # log_prob of 4096 particles, its training batch of 50 x 64 and one column
 # of its 4096-row sample. The parity phase's Gaussian.yaml (K = 10, B = 4):
 # its training batch (60 x 40), one column of a 500-draw batch's inverse
-# and the log_prob of a 500-frame batch (500 x 40).
+# and the log_prob of a 500-frame batch (500 x 40). The fit_studies
+# phase's: a fine-tune step's column of 256 draws (Gaussian.yaml), the gm
+# ref's training batch (40 x 40), its 2000 draws' column and their
+# log_prob (2000 x 40); the permutation diagnostic's column of 400 LJ draws
+# and its log_prob of 400 frames (400 x 96), B = (32 / 10.24)^(1/3); and
+# the card studies' longest rows, the reverse-KL fine-tunes' columns of
+# 256 draws on Phi4 and LJ.
 PATH_BOUNDS = {"phi4": (-6.0, 6.0) * 2, "fe": (-4.36725, 4.36725) * 2,
-               "polymer": (-4.0, 4.0) * 2, "gauss": (-4.0, 4.0) * 2}
+               "polymer": (-4.0, 4.0) * 2, "gauss": (-4.0, 4.0) * 2,
+               "lj": (-1.4620089, 1.4620089) * 2}
 PATH_RQS = [(6400, 16, False, "phi4"), (6400, 16, True, "phi4"),
             (810000, 32, False, "fe"), (8100, 32, False, "fe"),
             (81920, 32, False, "polymer"), (100, 32, True, "polymer"),
             (524288, 16, False, "phi4"), (8192, 16, True, "phi4"),
             (262144, 16, False, "phi4"), (3200, 16, False, "phi4"),
             (4096, 16, True, "phi4"), (2400, 10, False, "gauss"),
-            (500, 10, True, "gauss"), (20000, 10, False, "gauss")]
+            (500, 10, True, "gauss"), (20000, 10, False, "gauss"),
+            (256, 10, True, "gauss"), (1600, 10, False, "gauss"),
+            (2000, 10, True, "gauss"), (80000, 10, False, "gauss"),
+            (400, 32, True, "lj"), (38400, 32, False, "lj"),
+            (256, 16, True, "phi4"), (256, 32, True, "lj")]
 # tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
 RQS_Y_TOL = dict(atol=2e-5, rtol=1e-5)  # against the float64 plain version
 RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
@@ -364,6 +388,13 @@ JAX_EPOCH, RESUME_GAP = 2000, 1.0
 # was 0.013 and md -0.094, so 500 is the fewest that meets the gates with
 # room. The phase took 2.8 s there.
 PARITY_EPOCHS = 500
+# The fit_studies phase: the `rkl` variant on configs/Gaussian.yaml at the
+# parity phase's tested depth (500 of 3000 epochs) and 50 of its 2000
+# reverse-KL steps (a step pushes 256 draws through the 40-d SplineAR
+# inverse); GaussianMixture's `ref` at 1000 of 2000 epochs. The phase took
+# 8.8 s on an H100.
+FIT_EPOCHS, FIT_RKL_STEPS, GM_EPOCHS = 500, 50, 1000
+ENERGY_TOL = 1e-3  # relabeling permutes atoms: U must not move
 
 
 def log(*a):
@@ -1881,15 +1912,51 @@ def fe_cli_phase(label, name, seed, nframes, train=None, mbar_tol=None,
 
 def fe_lj_phase(seed):
     """configs/LJ.yaml through sample_data, train, test and fe testing; bar
-    within JAX_BAR's fault-detecting bound of the JAX record."""
+    within JAX_BAR's fault-detecting bound of the JAX record; then the
+    permutation diagnostic on the trained flow (lj_permutation_check),
+    whose numbers and launches the result's "permutation" holds."""
     depth_cut("fe_lj", "train epochs", LJ_EPOCHS, 8000)
+    permutation = {}
     stats, launches, err, err_vjp = fe_cli_phase(
         "fe_lj", "LJ", seed, FE_FRAMES, train={"max_epochs": LJ_EPOCHS},
         mbar_tol=0.05,
-        record="BAR dF over 3 datasets 9.5778 +- 0.1195 kT/particle")
+        record="BAR dF over 3 datasets 9.5778 +- 0.1195 kT/particle",
+        then=lambda cfg: permutation.update(lj_permutation_check(cfg)))
     bar_gate("fe_lj", stats, "LJ", "a fault detector at the cut depth, "
              "not a hold on its bias")
-    return dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp)
+    return dict(launches, max_abs_err=err, max_abs_err_vjp=err_vjp,
+                permutation=permutation)
+
+
+def lj_permutation_check(cfg):
+    """tools/torch_lj_permutation.py's diagnose on the trained flow of
+    `cfg` and its held-out frames: exact launches (the raw and relabeled
+    frames' evaluation, as many generated draws), mean U of the raw and
+    relabeled frames within ENERGY_TOL. Returns the numbers with their
+    launches."""
+    import numpy as np
+
+    from normalizingflow_tpu_torch.apps.test import load_trained
+    from tools import torch_lj_permutation
+
+    flow, potential, cfg = load_trained(cfg)
+    test = np.load(cfg.dataset.testing_data)
+    reset_launch_counts()
+    r = torch_lj_permutation.diagnose(flow, potential, test)
+    r["launches"] = launch_counts()
+    layers, dim = cfg.flow.nlayers, cfg.dataset.nparticles * cfg.dataset.dim
+    want = dict(accept_select=0, accept_unfused=0, rqs=2 * eval_launches(
+        len(test), layers) + sample_launches(len(test), layers, dim),
+        rqs_vjp=0)
+    log("lj_permutation: " + json.dumps(r))
+    log(torch_lj_permutation.report(r))
+    if r["launches"] != want:
+        raise AssertionError(f"lj_permutation: launches {r['launches']}, "
+                             f"the code implies {want}")
+    if not abs(r["u_raw"] - r["u_rel"]) <= ENERGY_TOL:
+        raise AssertionError(f"lj_permutation: mean U {r['u_raw']} raw, "
+                             f"{r['u_rel']} relabeled")
+    return r
 
 
 def bar_gate(label, stats, name, what=""):
@@ -2900,6 +2967,90 @@ def parity_phase(seed, epochs=PARITY_EPOCHS):
                 max_abs_err=max(err_y, err_ld), max_abs_err_vjp=err_vjp)
 
 
+def fit_studies_phase(seed, permutation):
+    """The module docstring's phase 15; `permutation` is what fe_lj's
+    lj_permutation_check returned. Returns the launches by kernel of the
+    three studies."""
+    import dataclasses
+
+    import numpy as np
+
+    from normalizingflow_tpu_torch.config import load_config, setup_model
+    from tools import torch_fit_sweep, torch_gm_fit_sweep
+
+    depth_cut("fit_studies", "rkl variant train epochs", FIT_EPOCHS, 3000)
+    depth_cut("fit_studies", "rkl fine-tune steps", FIT_RKL_STEPS,
+              torch_fit_sweep.VARIANTS["rkl"][2])
+    depth_cut("fit_studies", "gm ref epochs", GM_EPOCHS,
+              torch_gm_fit_sweep.REFERENCE["max_epochs"])
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        cfg = load_config(fe_config("Gaussian", tmp,
+                                    {"max_epochs": FIT_EPOCHS}))
+        _, target, _ = setup_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 4)
+        np.save(tmp / "test.npy",
+                target.sample(FE_SAMPLES, generator=gen).cpu().numpy())
+        cfg = dataclasses.replace(cfg, dataset=dataclasses.replace(
+            cfg.dataset, testing_data=str(tmp / "test.npy")))
+        reset_launch_counts()
+        row = torch_fit_sweep.run_variant("rkl", cfg, {}, {}, FIT_RKL_STEPS)
+        fit = launch_counts()
+    layers, dim = cfg.flow.nlayers, cfg.dataset.nparticles * cfg.dataset.dim
+    # a training step: each layer's forward and VJP; a fine-tune step: the
+    # inverse, a launch a coordinate a layer, each with its VJP; then the
+    # held-out gap's 2000 draws and 2000 frames
+    steps = layers * (FIT_EPOCHS + FIT_RKL_STEPS * dim)
+    want_fit = dict(accept_select=0, accept_unfused=0, rqs=steps + (
+        sample_launches(FE_SAMPLES, layers, dim)
+        + eval_launches(FE_SAMPLES, layers)), rqs_vjp=steps)
+
+    reset_launch_counts()
+    gm_row = torch_gm_fit_sweep.run("ref", {"max_epochs": GM_EPOCHS})
+    gm = launch_counts()
+    gm_cfg = torch_gm_fit_sweep.configure({"max_epochs": GM_EPOCHS})
+    gm_layers = gm_cfg.flow.nlayers
+    gm_dim = gm_cfg.dataset.nparticles * gm_cfg.dataset.dim
+    # the 2000 flow draws in one batch, then the target draws' log-density
+    want_gm = dict(accept_select=0, accept_unfused=0, rqs=gm_layers * (
+        GM_EPOCHS + gm_dim + 1), rqs_vjp=gm_layers * GM_EPOCHS)
+
+    stats = dict(
+        rkl_variant={k: row[k] for k in (
+            "epochs", "rkl_steps", "rkl_final_loss", "best_logprob",
+            "logp_gen", "logp_heldout", "gap_per_ptcl", "train_s")},
+        gm_ref={k: gm_row[k] for k in (
+            "overrides", "logp_gen", "logp_test", "gap", "rev_zwanzig_nf",
+            "train_s")},
+        permutation={k: permutation.get(k) for k in (
+            "frames", "n_permuted", "mean_moved", "u_raw", "u_rel",
+            "logp_gen", "logp_raw", "logp_rel", "recovered_pct")},
+        launches=dict(rkl_variant=fit, gm_ref=gm,
+                      permutation=permutation.get("launches")),
+        phase_s=time.perf_counter() - t_phase)
+    log("fit_studies: " + json.dumps(stats))
+    log(f"fit_studies: LJ permutation recovered "
+        f"{permutation['recovered_pct']:.1f}% of the held-out gap")
+    for label, got, want, own in (("rkl variant", fit, want_fit,
+                                   row["launches"]),
+                                  ("gm ref", gm, want_gm, gm_row["launches"])):
+        if got != want or own != want:
+            raise AssertionError(f"fit_studies {label}: launches {got} (the "
+                                 f"row's {own}), the code implies {want}")
+    if not (math.isfinite(row["rkl_final_loss"])
+            and abs(row["gap_per_ptcl"]) <= 0.05):
+        raise AssertionError(f"fit_studies: rkl variant gap "
+                             f"{row['gap_per_ptcl']} a particle, final "
+                             f"reverse KL {row['rkl_final_loss']}")
+    if not abs(gm_row["rev_zwanzig_nf"]) <= 0.05:
+        raise AssertionError(f"fit_studies: gm ref nf "
+                             f"{gm_row['rev_zwanzig_nf']} off the exact 0")
+    paths = (fit, gm, permutation["launches"])
+    return {k: sum(p[k] for p in paths)
+            for k in ("accept_select", "rqs", "rqs_vjp")}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -2978,6 +3129,7 @@ def main(argv=None):
     keep_dir.cleanup()
     jax_resume = jax_resume_phase()
     parity = parity_phase(args.seed)
+    fit_studies = fit_studies_phase(args.seed, fe_lj["permutation"])
     log(f"run: {time.perf_counter() - t0:.1f} s from the build's start")
 
     def entry(name, source, replaces, by_path, timed, errs, checks):
@@ -2995,7 +3147,8 @@ def main(argv=None):
 
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
                        polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel,
-                       jax_resume=jax_resume, parity=parity, **bench_paths)
+                       jax_resume=jax_resume, parity=parity,
+                       fit_studies=fit_studies, **bench_paths)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
                    for n, d in KERNEL_SHAPES[-4:] + [(SMC_PARTICLES, DIM)]}

@@ -87,6 +87,54 @@ def test_parity_tool_imports_no_jax():
         assert f"import {name}" not in src and f"from {name}" not in src
 
 
+IMPORT_FIT_TOOLS = """
+import sys
+import tools.{name}
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                    "normalizingflow_tpu", "chip_smoke")
+             or m in ("tools.fit_sweep", "tools.gm_fit_sweep",
+                      "tools.lj_permutation", "tools.parity"))
+print(bad)
+"""
+FIT_TOOLS = ("torch_fit_sweep", "torch_gm_fit_sweep", "torch_lj_permutation",
+             "torch_bf16_train")
+
+
+@pytest.mark.parametrize("name", FIT_TOOLS)
+def test_fit_study_tools_import_no_jax(name):
+    """Each of the fit-quality studies' tools, imported alone, loads
+    neither JAX nor the JAX package nor its JAX twin; its source names
+    none of them."""
+    out = subprocess.run([sys.executable, "-c",
+                          IMPORT_FIT_TOOLS.format(name=name)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    src = (ROOT / "tools" / f"{name}.py").read_text()
+    assert "normalizingflow_tpu." not in src.replace(
+        "normalizingflow_tpu_torch", "")
+    for mod in ("jax", "flax", "optax", "tools.fit_sweep",
+                "tools.gm_fit_sweep", "tools.lj_permutation"):
+        assert f"import {mod}" not in src and f"from {mod}" not in src
+
+
+@pytest.mark.parametrize("argv", [
+    ("torch_fit_sweep", ["configs/Phi4.yaml", "--variants", "baseline"]),
+    ("torch_gm_fit_sweep", ["ref"]),
+    ("torch_lj_permutation", ["configs/LJ.yaml"])], ids=lambda a: a[0])
+def test_fit_study_tools_run_on_the_card_unless_told_cpu(argv):
+    """Without --cpu each tool's main asks for the card, and raises where
+    there is none instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    import importlib
+
+    main = importlib.import_module(f"tools.{argv[0]}").main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(argv[1])
+
+
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "import jax" not in src and "normalizingflow_tpu." not in src \
