@@ -174,6 +174,26 @@ The multi-device layer (parallel/) and the last modules run after them:
               the raw and relabeled frames within 1e-3; the recovered share
               of the gap is printed. Exact launch counts in each of the
               three (both RQS kernels; no HMC).
+ 16. per_point: the JAX package's per-point target convention, run right
+              after phase 5 on the flows phases 4 and 5 trained.
+              pullback_logprob (one point) through pointwise_lp_grad
+              (torch.func.vmap of grad_and_value) against the batched
+              pullback: value and gradient at 8192 funnel chains (relative
+              1e-5) and 4096 spline chains (1e-4); PP_TRANSITIONS
+              transitions of hmc_kernel_batched against
+              hmc_kernel_chainbatched on one draw stream, the first held
+              chain by chain (positions within 1e-4, decisions equal away
+              from the accept threshold); run_hmc(batched_target=False)
+              for PP_WARMUP + PP_DRAWS, accept in [0.6, 0.95]; exact
+              launches: one accept launch a transition and, on the spline
+              flow, one RQS forward and one VJP launch a layer a gradient
+              evaluation, as batched (the RQS Function's vmap rules stack
+              the chains' rows into one call). PP_NUTS NUTS transitions
+              through nuts_kernel against nuts_transition on the funnel
+              pullback (depth 7, one tree's draws; no kernel launched).
+              tests/test_nuts_smc.py's standard-normal target: the default
+              raises ValueError, run_nuts(batched_target=False) within its
+              bands. Per-point and batched ms a transition are printed.
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -395,6 +415,20 @@ PARITY_EPOCHS = 500
 # 8.8 s on an H100.
 FIT_EPOCHS, FIT_RKL_STEPS, GM_EPOCHS = 500, 50, 1000
 ENERGY_TOL = 1e-3  # relabeling permutes atoms: U must not move
+# The per_point phase (16) on the flows of phases 4 and 5 at their widths:
+# PP_TRANSITIONS transitions per point against batched on one draw stream,
+# then run_hmc(batched_target=False) for PP_WARMUP + PP_DRAWS; PP_NUTS NUTS
+# transitions at NUTS_MAX_DEPTH; JAX's standard-normal NUTS test
+# (tests/test_nuts_smc.py: 32 chains, 300 + 500 draws) at PP_NORMAL_CHAINS
+# chains and PP_NORMAL_WARMUP + PP_NORMAL_DRAWS. Per point and batched run
+# the same kernels on the same rows; the conditioners' matmuls may round
+# apart in float32 (PP_RTOL, relative to each tensor's scale). A first
+# transition's decisions may differ only within PP_POS_TOL of the accept
+# threshold, and its positions agree to PP_POS_TOL elsewhere.
+PP_TRANSITIONS, PP_WARMUP, PP_DRAWS, PP_NUTS = 16, 50, 32, 4
+PP_NORMAL_CHAINS, PP_NORMAL_WARMUP, PP_NORMAL_DRAWS = 1024, 100, 64
+PP_RTOL = {"funnel": 1e-5, "spline": 1e-4}
+PP_POS_TOL, PP_NUTS_AGREE = 1e-4, 0.99
 
 
 def log(*a):
@@ -1550,7 +1584,309 @@ def spline_line(seed, device="cuda"):
         f"|z err| {rt_z:.3g}, max |log-det sum| {rt_ld:.3g}")
     return dict(rqs=rqs_launches, rqs_vjp=vjp_launches,
                 accept_select=acc_launches, max_abs_err=max(err_y, err_ld),
-                max_abs_err_vjp=err_vjp)
+                max_abs_err_vjp=err_vjp, step_size=stats["step_size"],
+                flow=flow)
+
+
+# -------------------------------------------------------------- per_point
+def rel_err(a, b):
+    """max |a - b| over max |b|: the error relative to the tensor's scale."""
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def launched(fn):
+    """fn() with every launch counter set to 0 just before; returns (its
+    result, the counts just after)."""
+    reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def expect_launches(label, counts, accept, rqs):
+    """Raise unless `counts` are `accept` fused accept launches (the
+    unfused form none) and `rqs` launches of the RQS forward and of its
+    VJP each."""
+    want = dict(accept_select=accept, accept_unfused=0, rqs=rqs, rqs_vjp=rqs)
+    if counts != want:
+        raise AssertionError(f"per_point {label}: launches {counts}, the "
+                             f"code implies {want}")
+
+
+def replay_draws(generator, chains, dim, dtype, device):
+    """nuts.TransitionDraws that give every consumer the same numbers:
+    each draw is made at its first request and kept, so a per-point and a
+    batched transition see one tree's draws."""
+    from normalizingflow_tpu_torch.mcmc.nuts import TransitionDraws
+
+    class Replay(TransitionDraws):
+        def __init__(self):
+            super().__init__(generator, chains, dim, dtype, device)
+            self.memo = {}
+
+        def kept(self, key, make):
+            if key not in self.memo:
+                self.memo[key] = make()
+            return self.memo[key]
+
+        def momentum(self):
+            return self.kept("m", super().momentum)
+
+        def direction(self, depth):
+            return self.kept(("d", depth), lambda: super(
+                Replay, self).direction(depth))
+
+        def take(self, depth):
+            return self.kept(("t", depth), lambda: super(
+                Replay, self).take(depth))
+
+        def leaf(self, depth, n):
+            return self.kept(("l", depth, n), lambda: super(
+                Replay, self).leaf(depth, n))
+
+    return Replay()
+
+
+def pp_line(label, point, batch, z, step, layers, gen):
+    """A flow's per-point HMC against its batched HMC on one draw stream:
+    value and gradient at z; PP_TRANSITIONS transitions of
+    hmc_kernel_batched against hmc_kernel_chainbatched, the first held
+    chain by chain; then run_hmc(batched_target=False), PP_WARMUP +
+    PP_DRAWS, under the funnel's accept gate. Exact launches throughout:
+    one accept launch a transition, one RQS forward and VJP a layer a
+    gradient evaluation, per point as batched. Returns (stats, the
+    per-point launches)."""
+    from normalizingflow_tpu_torch.mcmc import (
+        batched_lp_grad,
+        hmc_init,
+        hmc_kernel_batched,
+        hmc_kernel_chainbatched,
+        padded_length,
+        pointwise_lp_grad,
+        run_hmc,
+        transition_draws,
+    )
+
+    chains, dim = z.shape
+    ones = torch.ones(dim, device=z.device)
+    tol = PP_RTOL[label]
+    (lp_p, g_p), at_z = launched(lambda: pointwise_lp_grad(point)(z))
+    lp_b, g_b = batched_lp_grad(batch)(z)
+    expect_launches(f"{label} value and gradient", at_z, 0, layers)
+    err_lp, err_g = rel_err(lp_p, lp_b), rel_err(g_p, g_b)
+    if not (err_lp <= tol and err_g <= tol):
+        raise AssertionError(f"per_point {label}: value off by {err_lp}, "
+                             f"gradient by {err_g} (relative; {tol})")
+
+    draws = [transition_draws(gen, chains, dim, z.dtype, z.device)
+             for _ in range(PP_TRANSITIONS)]
+
+    def transitions(kernel, lp_grad):
+        state = hmc_init(lp_grad, z)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = None
+        for d in draws:
+            state, info = kernel(d, state)
+            first = first or (state, info)
+        torch.cuda.synchronize()
+        return first, state, (time.perf_counter() - t0) * 1e3 / len(draws)
+
+    (first_p, last_p, ms_p), n_p = launched(lambda: transitions(
+        hmc_kernel_batched(point, step, LEAPFROG, ones),
+        pointwise_lp_grad(point)))
+    (first_b, last_b, ms_b), n_b = launched(lambda: transitions(
+        hmc_kernel_chainbatched(batch, step, LEAPFROG, ones),
+        batched_lp_grad(batch)))
+    evals = 1 + LEAPFROG * PP_TRANSITIONS
+    expect_launches(f"{label} per-point transitions", n_p, PP_TRANSITIONS,
+                    layers * evals)
+    expect_launches(f"{label} batched transitions", n_b, PP_TRANSITIONS,
+                    layers * evals)
+    # the first transition chain by chain: a decision may differ only
+    # where log u lies within PP_POS_TOL of min(0, dH)
+    (s_p, i_p), (s_b, i_b) = first_p, first_b
+    differ = i_p.accepted != i_b.accepted
+    margin = (torch.log(draws[0][2])
+              - torch.clamp(i_b.energy_change, max=0.0)).abs()
+    if bool((differ & (margin >= PP_POS_TOL)).any()):
+        raise AssertionError(f"per_point {label}: accept decisions differ "
+                             f"away from the threshold")
+    pos_err = float((s_p.position - s_b.position)[~differ].abs().max())
+    if not pos_err <= PP_POS_TOL:
+        raise AssertionError(f"per_point {label}: first transition's "
+                             f"positions off by {pos_err}")
+    agree = float(((last_p.position - last_b.position).abs().amax(1)
+                   <= PP_POS_TOL).float().mean())
+
+    t0 = time.perf_counter()
+    res, n_run = launched(lambda: run_hmc(
+        gen, point, z, PP_DRAWS, num_warmup=PP_WARMUP, step_size=step,
+        num_leapfrog=LEAPFROG, device=z.device, batched_target=False))
+    run_s = time.perf_counter() - t0
+    n = padded_length(PP_WARMUP) + padded_length(PP_DRAWS)
+    expect_launches(f"{label} run_hmc", n_run, n, layers * (1 + LEAPFROG * n))
+    accept = float(res.accept_rate)
+    stats = dict(
+        chains=chains, value_rel_err=err_lp, grad_rel_err=err_g,
+        first_decisions_differ=int(differ.sum()),
+        first_position_err=pos_err,
+        chains_within_tol_after=dict(transitions=PP_TRANSITIONS,
+                                     share=agree),
+        ms_per_transition=ms_p, batched_ms_per_transition=ms_b,
+        run=dict(warmup=PP_WARMUP, draws=PP_DRAWS, transitions=n,
+                 seconds=run_s, ms_per_transition=run_s * 1e3 / n,
+                 accept=accept, step_size=float(res.step_size)),
+        launches_per_point=n_p, launches_batched=n_b, launches_run=n_run)
+    log(f"per_point {label}: " + json.dumps(stats))
+    if not bool(torch.isfinite(res.samples).all()) or not 0.6 <= accept \
+            <= 0.95:
+        raise AssertionError(f"per_point {label}: run_hmc accept {accept} "
+                             f"outside [0.6, 0.95] or non-finite samples")
+    return stats, {k: at_z[k] + n_p[k] + n_run[k] for k in at_z}
+
+
+def pp_nuts(point, batch, z, step, gen):
+    """PP_NUTS NUTS transitions through nuts_kernel (per point) against
+    nuts_transition (batched), each pair from one state on one tree's
+    draws: depth and position alike on PP_NUTS_AGREE of the chains; no
+    kernel launched."""
+    from normalizingflow_tpu_torch.mcmc import (
+        batched_lp_grad,
+        hmc_init,
+        nuts_kernel,
+        nuts_transition,
+    )
+
+    chains, dim = z.shape
+    ones = torch.ones(dim, device=z.device)
+    lp_grad = batched_lp_grad(batch)
+    kernel = nuts_kernel(point, step, ones, NUTS_MAX_DEPTH)
+    state = hmc_init(lp_grad, z)
+    reset_launch_counts()
+    before = launch_counts()
+    shares, ms_p, ms_b = [], 0.0, 0.0
+    for _ in range(PP_NUTS):
+        draws = replay_draws(gen, chains, dim, z.dtype, z.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_p, info_p = kernel(draws, state)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new_b, info_b = nuts_transition(lp_grad, state, draws, step, ones,
+                                        NUTS_MAX_DEPTH)
+        torch.cuda.synchronize()
+        ms_p += (t1 - t0) * 1e3 / PP_NUTS
+        ms_b += (time.perf_counter() - t1) * 1e3 / PP_NUTS
+        alike = (info_p.depth == info_b.depth) & (
+            (new_p.position - new_b.position).abs().amax(1) <= PP_POS_TOL)
+        shares.append(float(alike.float().mean()))
+        state = new_b
+    no_kernel_moved("per_point nuts", before)
+    stats = dict(transitions=PP_NUTS, max_depth=NUTS_MAX_DEPTH,
+                 chains_alike=shares, ms_per_transition=ms_p,
+                 batched_ms_per_transition=ms_b)
+    log("per_point nuts: " + json.dumps(stats))
+    if min(shares) < PP_NUTS_AGREE:
+        raise AssertionError(f"per_point nuts: chains alike {shares}, "
+                             f"below {PP_NUTS_AGREE}")
+    return stats
+
+
+def pp_standard_normal(gen):
+    """tests/test_nuts_smc.py test_nuts_standard_normal's per-point target
+    on the card: the port's default refuses it (run_nuts and run_hmc),
+    batched_target=False samples it within the test's bands."""
+    from normalizingflow_tpu_torch.mcmc import padded_length, run_hmc, run_nuts
+
+    def logprob(x):
+        return -0.5 * torch.sum(x * x)
+
+    device = gen.device
+    init = torch.randn(PP_NORMAL_CHAINS, 4, generator=gen, device=device)
+    for sampler in (run_nuts, run_hmc):
+        try:
+            sampler(gen, logprob, init, 2, num_warmup=0, device=device)
+        except ValueError as err:
+            if "batched_target=False" not in str(err):
+                raise
+        else:
+            raise AssertionError(f"{sampler.__name__} took a per-point "
+                                 f"target as batched")
+    reset_launch_counts()
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_nuts(gen, logprob, init, PP_NORMAL_DRAWS,
+                   num_warmup=PP_NORMAL_WARMUP, step_size=0.2, max_depth=6,
+                   device=device, batched_target=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    no_kernel_moved("per_point standard normal", before)
+    s = res.samples.reshape(-1, 4).double()
+    mean, var = s.mean(0), s.var(0, correction=0)
+    stats = dict(chains=PP_NORMAL_CHAINS, warmup=PP_NORMAL_WARMUP,
+                 draws=PP_NORMAL_DRAWS, seconds=seconds,
+                 ms_per_transition=seconds * 1e3 / (
+                     padded_length(PP_NORMAL_WARMUP)
+                     + padded_length(PP_NORMAL_DRAWS)),
+                 mean=mean.tolist(), var=var.tolist(),
+                 mean_depth=float(res.mean_depth),
+                 divergence_rate=float(res.divergence_rate),
+                 accept=float(res.accept_rate))
+    log("per_point standard normal: " + json.dumps(stats))
+    if not (float(mean.abs().max()) < 0.1
+            and float((var - 1.0).abs().max()) < 0.12
+            and stats["divergence_rate"] < 0.01
+            and 1.0 <= stats["mean_depth"] <= 6.0):
+        raise AssertionError("per_point standard normal outside "
+                             "tests/test_nuts_smc.py's bands")
+    return stats
+
+
+def per_point_phase(keep, spline_flow, funnel_step, spline_step, seed):
+    """Phase 16: the JAX package's per-point targets on the flows phases 4
+    and 5 trained. Returns the per-point launches of each kernel."""
+    from normalizingflow_tpu_torch.mcmc import (
+        pullback_logprob,
+        pullback_logprob_batched,
+    )
+    from normalizingflow_tpu_torch.mcmc.neutra import frozen
+    from normalizingflow_tpu_torch.targets import NealsFunnel
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 16)
+    funnel, target = funnel_model(keep, "cuda")
+    z = funnel.prior.sample(CHAINS, generator=gen)
+    point = pullback_logprob(funnel, target)
+    batch = pullback_logprob_batched(funnel, target)
+    funnel_stats, funnel_n = pp_line("funnel", point, batch, z, funnel_step,
+                                     0, gen)
+    nuts = pp_nuts(point, batch, z[:NUTS_CHAINS], funnel_step, gen)
+    del funnel
+    torch.cuda.empty_cache()
+    with frozen(spline_flow):
+        target = NealsFunnel(SP_DIM)
+        z = spline_flow.prior.sample(SP_CHAINS, generator=gen)
+        spline_stats, spline_n = pp_line(
+            "spline", pullback_logprob(spline_flow, target),
+            pullback_logprob_batched(spline_flow, target), z, spline_step,
+            len(spline_flow.bijector.bijectors), gen)
+    normal = pp_standard_normal(gen)
+    seconds = time.perf_counter() - t0
+    launches = {k: funnel_n[k] + spline_n[k] for k in funnel_n}
+    log("per_point: " + json.dumps(dict(
+        seconds=seconds, launches=launches, funnel_ms_per_transition=dict(
+            per_point=funnel_stats["ms_per_transition"],
+            batched=funnel_stats["batched_ms_per_transition"]),
+        spline_ms_per_transition=dict(
+            per_point=spline_stats["ms_per_transition"],
+            batched=spline_stats["batched_ms_per_transition"]),
+        nuts_ms_per_transition=dict(
+            per_point=nuts["ms_per_transition"],
+            batched=nuts["batched_ms_per_transition"]),
+        standard_normal_s=normal["seconds"])))
+    return launches
 
 
 # ----------------------------------------------------- free-energy phases
@@ -3113,6 +3449,10 @@ def main(argv=None):
     torch.cuda.empty_cache()
     spline = spline_line(args.seed)
     torch.cuda.empty_cache()
+    per_point = per_point_phase(keep, spline.pop("flow"),
+                                main_stats["step_size"],
+                                spline.pop("step_size"), args.seed)
+    torch.cuda.empty_cache()
     fe_lj = fe_lj_phase(args.seed)
     torch.cuda.empty_cache()
     fe_einstein = fe_einstein_phase()
@@ -3148,7 +3488,8 @@ def main(argv=None):
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
                        polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel,
                        jax_resume=jax_resume, parity=parity,
-                       fit_studies=fit_studies, **bench_paths)
+                       fit_studies=fit_studies, per_point=per_point,
+                       **bench_paths)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
                    for n, d in KERNEL_SHAPES[-4:] + [(SMC_PARTICLES, DIM)]}

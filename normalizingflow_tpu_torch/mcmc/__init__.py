@@ -15,15 +15,20 @@ from .hmc import (
     HMCState,
     batched_lp_grad,
     hmc_init,
+    hmc_kernel,
+    hmc_kernel_batched,
+    hmc_kernel_chainbatched,
     hmc_transition,
     leapfrog,
     padded_length,
+    pointwise_lp_grad,
     run_hmc,
     transition_draws,
 )
 from .neutra import (
     NeutraResult,
     neutra_hmc,
+    pullback_logprob,
     pullback_logprob_batched,
     push_to_data,
 )
@@ -31,6 +36,7 @@ from .nuts import (
     NUTSInfo,
     NUTSResult,
     TransitionDraws,
+    nuts_kernel,
     nuts_transition,
     run_nuts,
 )
@@ -53,12 +59,14 @@ __all__ = [
     "DualAveragingState", "WelfordState", "da_init", "da_step_size",
     "da_update", "warmup_schedule", "welford_init", "welford_update_batch",
     "welford_variance",
-    "HMCInfo", "HMCResult", "HMCState", "batched_lp_grad", "hmc_init",
-    "hmc_transition", "leapfrog", "padded_length", "run_hmc",
-    "transition_draws",
-    "NUTSInfo", "NUTSResult", "TransitionDraws", "nuts_transition",
-    "run_nuts",
-    "NeutraResult", "neutra_hmc", "pullback_logprob_batched", "push_to_data",
+    "HMCInfo", "HMCResult", "HMCState", "batched_lp_grad",
+    "hmc_init", "hmc_kernel", "hmc_kernel_batched", "hmc_kernel_chainbatched",
+    "hmc_transition", "leapfrog", "padded_length", "pointwise_lp_grad",
+    "run_hmc", "transition_draws",
+    "NUTSInfo", "NUTSResult", "TransitionDraws", "nuts_kernel",
+    "nuts_transition", "run_nuts",
+    "NeutraResult", "neutra_hmc", "pullback_logprob",
+    "pullback_logprob_batched", "push_to_data",
     "RelaxationResult", "collect_hmc_data", "integrate_out_v", "metropolize",
     "relaxation_step",
     "SMCResult", "ess_from_log_weights", "flow_smc", "run_smc",

@@ -1,13 +1,20 @@
 """Hamiltonian Monte Carlo over a chain batch.
 
-Twin of normalizingflow_tpu/mcmc/hmc.py in its chain-batched form
-(`hmc_kernel_chainbatched`, `run_hmc(batched_target=True)`): the target
-maps the whole (chains, dim) batch to (chains,) log-probs, each leapfrog
-step is one autograd gradient of the summed log-prob, and the Metropolis
-accept + state select, with the last half-kick and both kinetic energies,
-goes through ops.hmc.accept_select_fused (one CUDA kernel on the card). A
-diagonal mass matrix M gives momenta ~ N(0, M) and kinetic energy
-p^T M^-1 p / 2; acceptance is exp(min(0, dH)).
+Twin of normalizingflow_tpu/mcmc/hmc.py. The transition runs on the whole
+(chains, dim) batch: each leapfrog step is one gradient evaluation of the
+batch, and the Metropolis accept + state select, with the last half-kick
+and both kinetic energies, goes through ops.hmc.accept_select_fused (one
+CUDA kernel on the card). A diagonal mass matrix M gives momenta ~ N(0, M)
+and kinetic energy p^T M^-1 p / 2; acceptance is exp(min(0, dH)).
+
+Targets come in the JAX package's two conventions. A batched target maps
+(chains, dim) to (chains,) log-probs (`batched_lp_grad`,
+`hmc_kernel_chainbatched`, the port's default `run_hmc(batched_target=
+True)`). A per-point target maps one (dim,) point to a scalar, as JAX's
+default `run_hmc(batched_target=False)` takes it: `pointwise_lp_grad`
+evaluates it over the batch with `torch.func.vmap`, and
+`hmc_kernel_batched` is that transition. `hmc_kernel` is one chain's
+transition in plain tensor ops, for `torch.func.vmap` over chains.
 
 Randomness. Each transition takes three raw draws per chain: a jitter
 uniform in [-1, 1) of shape (chains, 1), a standard-normal (chains, dim)
@@ -79,9 +86,38 @@ def batched_lp_grad(logprob_batch_fn):
     return lp_grad
 
 
+def pointwise_lp_grad(logprob_fn):
+    """The same for a per-point target, (dim,) -> (): `logprob_fn` and its
+    gradient vmapped over the chains by torch.func. A spline flow's RQS
+    kernels run once an evaluation on all chains' rows (their vmap rules,
+    ops/rqs.py). Both come back detached, as `batched_lp_grad`'s do."""
+    vg = torch.func.vmap(torch.func.grad_and_value(logprob_fn))
+
+    def lp_grad(x):
+        g, lp = vg(x)
+        return lp.detach(), g.detach().contiguous()
+
+    return lp_grad
+
+
 def hmc_init(lp_grad, position):
     lp, grad = lp_grad(position)
     return HMCState(position, lp, grad)
+
+
+def check_batched(state, batched_target):
+    """Raise unless the initial state's log-probs are one a chain. A
+    per-point target called on the batch returns one number for all the
+    chains, whose gradient mixes them: it must be declared."""
+    chains = state.position.shape[0]
+    if tuple(state.log_prob.shape) != (chains,):
+        form = ("a batched target, (chains, dim) -> (chains,)"
+                if batched_target else "a per-point target, (dim,) -> ()")
+        raise ValueError(
+            f"the target returned shape {tuple(state.log_prob.shape)} for "
+            f"{chains} chains, not ({chains},); batched_target="
+            f"{batched_target} takes {form}. Pass batched_target=False for "
+            f"a target written for one point.")
 
 
 def _leapfrog_to_last_kick(lp_grad, position, momentum, grad, step_size,
@@ -149,6 +185,75 @@ def hmc_transition(lp_grad, state, draws, step_size, num_leapfrog,
     return HMCState(pos, lp, g), HMCInfo(accept_prob, accepted, d_energy)
 
 
+def hmc_kernel(logprob_fn, step_size, num_leapfrog, inv_mass_diag,
+               step_jitter=0.2):
+    """One HMC transition of a single chain, `kernel(draws, state)`, for a
+    per-point target; `torch.func.vmap(kernel)` runs a chain batch.
+
+    `draws` are one chain's rows of `transition_draws`: a jitter uniform
+    (1,), a standard-normal momentum (dim,) and an accept uniform (). Plain
+    tensor ops, as JAX's per-chain kernel is jnp: it launches no kernel;
+    `hmc_kernel_batched` gives the same transition through the accept
+    kernel."""
+    grad_and_value = torch.func.grad_and_value(logprob_fn)
+
+    def lp_grad(q):
+        g, lp = grad_and_value(q)
+        return lp, g
+
+    def kernel(draws, state):
+        u_jitter, normal, u_accept = draws
+        eps = step_size * (1.0 + step_jitter * u_jitter)
+        momentum = torch.sqrt(1.0 / inv_mass_diag) * normal
+        q, p, lp_new, g_new = leapfrog(lp_grad, state.position, momentum,
+                                       state.grad, eps, num_leapfrog,
+                                       inv_mass_diag)
+        h_old = -state.log_prob + 0.5 * torch.sum(
+            inv_mass_diag * momentum * momentum)
+        h_new = -lp_new + 0.5 * torch.sum(inv_mass_diag * p * p)
+        d_energy = h_old - h_new
+        log_accept = torch.clamp(d_energy, max=0.0)
+        # a divergent (NaN) proposal is rejected with accept prob 0
+        finite = torch.isfinite(h_new)
+        accepted = (torch.log(u_accept) < log_accept) & finite
+        new_state = HMCState(torch.where(accepted, q, state.position),
+                             torch.where(accepted, lp_new, state.log_prob),
+                             torch.where(accepted, g_new, state.grad))
+        accept_prob = torch.where(finite, torch.exp(log_accept), 0.0)
+        return new_state, HMCInfo(accept_prob, accepted, d_energy)
+
+    return kernel
+
+
+def hmc_kernel_batched(logprob_fn, step_size, num_leapfrog, inv_mass_diag,
+                       step_jitter=0.2):
+    """One HMC transition of a chain batch for a per-point target,
+    `kernel(draws, state)` with `transition_draws`' draws: the transition
+    of `torch.func.vmap(hmc_kernel(...))`, its gradients vmapped
+    (`pointwise_lp_grad`) and its tail the accept kernel, as JAX's routes
+    through `accept_select`."""
+    return _transition_kernel(pointwise_lp_grad(logprob_fn), step_size,
+                              num_leapfrog, inv_mass_diag, step_jitter)
+
+
+def hmc_kernel_chainbatched(logprob_batch_fn, step_size, num_leapfrog,
+                            inv_mass_diag, step_jitter=0.2):
+    """One HMC transition where the target sees the whole chain batch,
+    (chains, dim) -> (chains,): `hmc_transition` on `batched_lp_grad`,
+    as `kernel(draws, state)`."""
+    return _transition_kernel(batched_lp_grad(logprob_batch_fn), step_size,
+                              num_leapfrog, inv_mass_diag, step_jitter)
+
+
+def _transition_kernel(lp_grad, step_size, num_leapfrog, inv_mass_diag,
+                       step_jitter):
+    def kernel(draws, state):
+        return hmc_transition(lp_grad, state, draws, step_size, num_leapfrog,
+                              inv_mass_diag, step_jitter)
+
+    return kernel
+
+
 def padded_length(length, chunk=128):
     """Transitions the JAX package runs for `length` requested: `length`
     rounded up to a multiple of `chunk` once it exceeds `chunk`."""
@@ -205,17 +310,20 @@ def warmup(step, state, num_warmup, step_size, inv_mass_diag,
 def run_hmc(generator, logprob_fn, init_position, num_samples,
             num_warmup=500, step_size=0.1, num_leapfrog=10,
             target_accept=0.8, thin=1, inv_mass_diag=None, step_jitter=0.2,
-            draws=None, device="cuda", mesh=None):
+            draws=None, device="cuda", mesh=None, batched_target=True):
     """Full HMC run: warmup (adaptation) + sampling.
 
-    `logprob_fn` maps (chains, dim) -> (chains,). `init_position` is
-    (chains, dim) on `device`. Randomness comes from `generator`, or from
-    the iterator `draws` of per-transition raw draws (see the module
-    docstring). With `mesh` (parallel.Mesh), `init_position` and the draws
-    are this rank's chains, and the three statistics that cross chains (the
-    warmup's mean acceptance, its Welford window, `accept_rate`) are
-    reduced over every rank's. Returns HMCResult with samples
-    (num_samples, chains, dim).
+    `logprob_fn` maps (chains, dim) -> (chains,), or, with
+    `batched_target=False` (the JAX package's default), one point (dim,)
+    to a scalar; a target of the other form raises ValueError. Both run
+    the same transition (`hmc_kernel_chainbatched`, `hmc_kernel_batched`).
+    `init_position` is (chains, dim) on `device`. Randomness comes from
+    `generator`, or from the iterator `draws` of per-transition raw draws
+    (see the module docstring). With `mesh` (parallel.Mesh),
+    `init_position` and the draws are this rank's chains, and the three
+    statistics that cross chains (the warmup's mean acceptance, its Welford
+    window, `accept_rate`) are reduced over every rank's. Returns
+    HMCResult with samples (num_samples, chains, dim).
     """
     device = entry_device(device)
     check_on(device, init_position)
@@ -225,10 +333,12 @@ def run_hmc(generator, logprob_fn, init_position, num_samples,
         inv_mass_diag = torch.ones(dim, dtype=dtype, device=device)
     next_draws = draw_source(draws, lambda: transition_draws(
         generator, chains, dim, dtype, device))
-    lp_grad = batched_lp_grad(logprob_fn)
+    lp_grad = (batched_lp_grad if batched_target
+               else pointwise_lp_grad)(logprob_fn)
     # The run owns its state: every transition updates it in place.
     state = hmc_init(lp_grad, init_position.clone(
         memory_format=torch.contiguous_format))
+    check_batched(state, batched_target)
 
     def step(state, eps, inv_mass):
         return hmc_transition(lp_grad, state, next_draws(), eps,

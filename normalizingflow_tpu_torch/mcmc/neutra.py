@@ -5,8 +5,9 @@ HMC runs in latent space z on the pullback density
     log pi~(z) = log pi(T(z)) + log|det dT/dz|,   T = flow.inverse (z -> x)
 
 which a well-trained flow makes close to its (near-isotropic) prior, and
-the latent draws are pushed back through T. The port has only the
-chain-batched form: one flow call per leapfrog step for all chains.
+the latent draws are pushed back through T. `neutra_hmc` runs the
+chain-batched form, one flow call per leapfrog step for all chains;
+`pullback_logprob` is JAX's per-point form, for `batched_target=False`.
 """
 
 from __future__ import annotations
@@ -20,6 +21,18 @@ from ..device import check_on, entry_device
 from .hmc import run_hmc
 
 PUSH_CHUNK = 65536  # latent rows per flow.inverse call in the push
+
+
+def pullback_logprob(flow, target):
+    """(dim,) -> () latent log-density of one point. Use it under
+    `frozen(flow)`, so that a gradient in z builds no graph to the
+    parameters; `torch.func.vmap` of it runs the flow once on the batch."""
+
+    def logprob(z):
+        x, log_det = flow.inverse(z[None])
+        return target.log_prob(x)[0] + log_det[0]
+
+    return logprob
 
 
 def pullback_logprob_batched(flow, target):

@@ -6,8 +6,9 @@ NumPyro and Stan) with a checkpoint stack of max_depth + 1 states,
 multinomial sampling within a subtree, biased progressive sampling across
 the doublings, the divergence guard at |dH| > 1000 and a diagonal mass
 matrix. `run_nuts` has `run_hmc`'s warmup and interface. The target is
-batched, (chains, dim) -> (chains,), and each leaf is one autograd gradient
-of the whole batch.
+batched, (chains, dim) -> (chains,), or, with `batched_target=False`, per
+point, (dim,) -> () (the only form JAX's run_nuts takes; `nuts_kernel`);
+each leaf is one gradient evaluation of the whole batch.
 
 Batching. Under vmap a while_loop runs while any chain's condition holds,
 and a chain whose condition fails keeps its carry. So here:
@@ -49,9 +50,11 @@ from ..device import check_on, entry_device
 from .hmc import (
     HMCState,
     batched_lp_grad,
+    check_batched,
     draw_source,
     hmc_init,
     padded_length,
+    pointwise_lp_grad,
     warmup,
 )
 
@@ -263,12 +266,31 @@ def nuts_transition(lp_grad, state, draws, step_size, inv_mass_diag,
             NUTSInfo(accept_prob, diverged, depth, n_leapfrog))
 
 
+def nuts_kernel(logprob_fn, step_size, inv_mass_diag, max_depth=10):
+    """One NUTS transition of a chain batch for a per-point target, (dim,)
+    -> (): `kernel(draws, state)`, equal to JAX's
+    `jax.vmap(nuts_kernel(...))`. The tree's loops end on host syncs ("is
+    any chain still going?"), which `torch.func.vmap` cannot carry, so this
+    twin is the vmapped form itself: `nuts_transition` with the gradients
+    vmapped (`pointwise_lp_grad`). It launches no kernel."""
+    lp_grad = pointwise_lp_grad(logprob_fn)
+
+    def kernel(draws, state):
+        return nuts_transition(lp_grad, state, draws, step_size,
+                               inv_mass_diag, max_depth)
+
+    return kernel
+
+
 def run_nuts(generator, logprob_fn, init_position, num_samples,
              num_warmup=500, step_size=0.1, max_depth=8, target_accept=0.8,
-             inv_mass_diag=None, draws=None, device="cuda"):
+             inv_mass_diag=None, draws=None, device="cuda",
+             batched_target=True):
     """Full NUTS run: warmup (adaptation, as run_hmc's) + sampling.
 
-    `logprob_fn` maps (chains, dim) -> (chains,); `init_position` is
+    `logprob_fn` maps (chains, dim) -> (chains,), or, with
+    `batched_target=False`, one point (dim,) to a scalar (`nuts_kernel`);
+    a target of the other form raises ValueError. `init_position` is
     (chains, dim) on `device`. `inv_mass_diag` seeds the diagonal inverse
     mass; with num_warmup=0 it and `step_size` are used as they are.
     Randomness comes from `generator`, or from the iterable `draws` of
@@ -283,8 +305,10 @@ def run_nuts(generator, logprob_fn, init_position, num_samples,
         inv_mass_diag = torch.ones(dim, dtype=dtype, device=device)
     next_draws = draw_source(draws, lambda: TransitionDraws(
         generator, chains, dim, dtype, device))
-    lp_grad = batched_lp_grad(logprob_fn)
+    lp_grad = (batched_lp_grad if batched_target
+               else pointwise_lp_grad)(logprob_fn)
     state = hmc_init(lp_grad, init_position)
+    check_batched(state, batched_target)
 
     def step(state, eps, inv_mass):
         return nuts_transition(lp_grad, state, next_draws(), eps, inv_mass,

@@ -25,7 +25,6 @@ import ctypes
 import math
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..bijectors.rqs import (
     DEFAULT_MIN_BIN_HEIGHT,
@@ -341,26 +340,77 @@ def rqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
     return gx, gw, gh, gd
 
 
+def _stack_rows(info, in_dims, tensors):
+    """The vmap rules' batching: each batched operand's vmapped dim moved to
+    the front, each unbatched one (in_dim None) expanded to the batch, all
+    contiguous. The transform is per scalar over leading dims, so the
+    batch is more rows of one call (the JAX package's custom_vmap rule,
+    rqs_pallas.py `_fused_elementwise`, broadcasts the same way)."""
+    return [(t.movedim(dim, 0) if dim is not None
+             else t.expand(info.batch_size, *t.shape)).contiguous()
+            for t, dim in zip(tensors, in_dims)]
+
+
 class _FusedRQS(torch.autograd.Function):
     """Forward by `forward`, backward by `backward` (the JAX custom_vjp
-    `_fused_fwd` / `_fused_bwd`, with the VJP a kernel of its own)."""
+    `_fused_fwd` / `_fused_bwd`, with the VJP a kernel of its own).
+
+    Written for torch.func: under `torch.func.vmap` the `vmap` rule calls
+    `forward` once on the stacked rows (a kernel reads storage, which a
+    BatchedTensor has not), so nested vmap and `vmap(grad(...))` launch
+    each kernel once an evaluation, whatever the batch."""
 
     @staticmethod
-    def forward(ctx, x, w, h, d, forward, backward, inverse, bounds):
+    def forward(x, w, h, d, forward, backward, inverse, bounds):
+        return forward(x, w, h, d, inverse, *bounds)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, h, d, _, backward, inverse, bounds = inputs
         ctx.save_for_backward(x, w, h, d)
         ctx.vjp = backward
         ctx.inverse = inverse
         ctx.bounds = bounds
-        return forward(x, w, h, d, inverse, *bounds)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, grad_y, grad_ld):
-        grads = ctx.vjp(*ctx.saved_tensors, grad_y, grad_ld, ctx.inverse,
-                        *ctx.bounds)
+        grads = _RQSVJP.apply(*ctx.saved_tensors, grad_y, grad_ld, ctx.vjp,
+                              ctx.inverse, ctx.bounds)
         return (*(g if need else None
                   for g, need in zip(grads, ctx.needs_input_grad[:4])),
                 None, None, None, None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, h, d, forward, backward, inverse, bounds):
+        out = _FusedRQS.apply(*_stack_rows(info, in_dims[:4], (x, w, h, d)),
+                              forward, backward, inverse, bounds)
+        return out, (0, 0)
+
+
+class _RQSVJP(torch.autograd.Function):
+    """The VJP by `vjp`, with its own vmap rule (the cotangents are batched
+    too under `vmap(grad(...))`). Not differentiable again."""
+
+    @staticmethod
+    def forward(x, w, h, d, grad_y, grad_ld, vjp, inverse, bounds):
+        return tuple(vjp(x, w, h, d, grad_y, grad_ld, inverse, *bounds))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the RQS kernels' VJP is once_differentiable: "
+                           "no second derivative through the spline")
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, h, d, grad_y, grad_ld, vjp, inverse,
+             bounds):
+        out = _RQSVJP.apply(*_stack_rows(info, in_dims[:6],
+                                         (x, w, h, d, grad_y, grad_ld)),
+                            vjp, inverse, bounds)
+        return out, (0, 0, 0, 0)
 
 
 def unconstrained_rqs_fused(x, w, h, d, inverse, left, right, bottom, top,

@@ -1,6 +1,7 @@
 """The port stands alone: importing it loads neither JAX nor the JAX
 package, and its entry points do not fall back to the CPU."""
 
+import ast
 import subprocess
 import sys
 from pathlib import Path
@@ -135,6 +136,47 @@ def test_fit_study_tools_run_on_the_card_unless_told_cpu(argv):
         main(argv[1])
 
 
+def public_names(path):
+    """Top-level public names a module defines (and, in a package's
+    __init__, re-exports)."""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.ImportFrom) and path.name == "__init__.py":
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+# What the port leaves out of the JAX package: the Pallas modules (their
+# kernels are csrc/*.cu), the switch between the Pallas and jnp RQS, the
+# nested scan that keeps TPU trip counts small, and EAM's Chebyshev /
+# spline-table options of the TPU's gather workaround.
+NOT_PORTED = {"ops/hmc_pallas.py": None, "ops/rqs_pallas.py": None,
+              "bijectors/rqs.py": {"set_fused_rqs"},
+              "mcmc/hmc.py": {"chunked_scan"},
+              "targets/eam.py": {"CHEB_DEGREE", "CHEB_SEGMENTS",
+                                 "SPLINE_IMPL"}}
+
+
+def test_port_has_every_public_name_of_the_jax_package():
+    """Each module of normalizingflow_tpu/ has its twin in the port with
+    every public name, except the TPU workarounds in NOT_PORTED."""
+    jax_root = ROOT / "normalizingflow_tpu"
+    missing = {}
+    for path in sorted(jax_root.rglob("*.py")):
+        rel = path.relative_to(jax_root).as_posix()
+        twin = ROOT / "normalizingflow_tpu_torch" / rel
+        if not twin.exists():
+            missing[rel] = None
+        elif public_names(path) - public_names(twin):
+            missing[rel] = public_names(path) - public_names(twin)
+    assert missing == NOT_PORTED
+
+
 def test_chip_smoke_imports_no_jax():
     src = (ROOT / "chip_smoke.py").read_text()
     assert "import jax" not in src and "normalizingflow_tpu." not in src \
@@ -171,6 +213,16 @@ def test_entry_points_default_to_cuda_and_do_not_fall_back():
         bench.main()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench_scaling.main()
+
+
+@pytest.mark.parametrize("sampler", [run_hmc, run_nuts])
+def test_per_point_runs_default_to_cuda(sampler):
+    """batched_target=False changes the target's form, not the device."""
+    if torch.cuda.is_available():
+        pytest.skip("needs a host without CUDA")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        sampler(torch.Generator(), lambda x: -0.5 * (x * x).sum(),
+                torch.zeros(4, 2), 2, batched_target=False)
 
 
 @pytest.mark.parametrize("device", ["tpu", "cuda", "cuda:1", None])
