@@ -194,6 +194,25 @@ The multi-device layer (parallel/) and the last modules run after them:
               tests/test_nuts_smc.py's standard-normal target: the default
               raises ValueError, run_nuts(batched_target=False) within its
               bands. Per-point and batched ms a transition are printed.
+ 17. vi     : variational inference, BASELINE configs 2 and 3 as
+              tests/test_vi.py defines them, right after phase 12's
+              elementary flows, with its fit loop (Adam at a constant rate,
+              256 fresh draws a step) at its depths. Config 2: 8 x
+              Invert(Planar(2)) on CorrelatedGaussian(2, 0.7), 800 ELBO
+              steps (loss drop >= 0.2, covariance of 8000 draws within
+              0.25); 6 x Radial(2) on the one-centre GaussianMixture, 600
+              steps (mean within 0.2); ELBO <= 0.05 for ActNorm(3) on a
+              normalised target at 20000 draws; elbo == -reverse_kl on one
+              latent batch; no kernel launched. Config 3: 2 x
+              SplineCoupling (K 8, B 4, hidden 32) + InvertibleLinear, 500
+              forward-KL steps, then 4000 draws (round trip within 1e-3):
+              on CorrelatedGaussian(8, 0.6) with the JAX test's moment
+              gates, and at size 16 on CorrelatedGaussian() (32, 0.9) and
+              Banana(32) with the bands the JAX package's own flow meets at
+              the same settings (VI_BANDS). Exact launches of both RQS
+              kernels (K = 8, B = 4; their shapes are in PATH_RQS); ms a
+              step of each fit; the device idle share of an ELBO and of a
+              forward-KL step.
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -270,10 +289,14 @@ RQS_BOUNDS = {"sym": (-6.0, 6.0, -6.0, 6.0),
 # log_prob (2000 x 40); the permutation diagnostic's column of 400 LJ draws
 # and its log_prob of 400 frames (400 x 96), B = (32 / 10.24)^(1/3); and
 # the card studies' longest rows, the reverse-KL fine-tunes' columns of
-# 256 draws on Phi4 and LJ.
+# 256 draws on Phi4 and LJ. The vi phase's spline stacks (K = 8, B = 4,
+# one transformed coordinate a particle): a training batch of 256 at the
+# JAX test's 4 particles and at BASELINE's 16 (1024 and 4096 rows), and
+# the 4000 draws' inverse and their round trip's forward (16000 and 64000
+# rows).
 PATH_BOUNDS = {"phi4": (-6.0, 6.0) * 2, "fe": (-4.36725, 4.36725) * 2,
                "polymer": (-4.0, 4.0) * 2, "gauss": (-4.0, 4.0) * 2,
-               "lj": (-1.4620089, 1.4620089) * 2}
+               "lj": (-1.4620089, 1.4620089) * 2, "vi": (-4.0, 4.0) * 2}
 PATH_RQS = [(6400, 16, False, "phi4"), (6400, 16, True, "phi4"),
             (810000, 32, False, "fe"), (8100, 32, False, "fe"),
             (81920, 32, False, "polymer"), (100, 32, True, "polymer"),
@@ -284,7 +307,10 @@ PATH_RQS = [(6400, 16, False, "phi4"), (6400, 16, True, "phi4"),
             (256, 10, True, "gauss"), (1600, 10, False, "gauss"),
             (2000, 10, True, "gauss"), (80000, 10, False, "gauss"),
             (400, 32, True, "lj"), (38400, 32, False, "lj"),
-            (256, 16, True, "phi4"), (256, 32, True, "lj")]
+            (256, 16, True, "phi4"), (256, 32, True, "lj"),
+            (1024, 8, False, "vi"), (16000, 8, True, "vi"),
+            (16000, 8, False, "vi"), (4096, 8, False, "vi"),
+            (64000, 8, True, "vi"), (64000, 8, False, "vi")]
 # tests/test_rqs_pallas.py's kernel-vs-jnp bar, kept for this kernel
 RQS_Y_TOL = dict(atol=2e-5, rtol=1e-5)  # against the float64 plain version
 RQS_LD_TOL = dict(atol=2e-4, rtol=1e-4)
@@ -429,6 +455,23 @@ PP_TRANSITIONS, PP_WARMUP, PP_DRAWS, PP_NUTS = 16, 50, 32, 4
 PP_NORMAL_CHAINS, PP_NORMAL_WARMUP, PP_NORMAL_DRAWS = 1024, 100, 64
 PP_RTOL = {"funnel": 1e-5, "spline": 1e-4}
 PP_POS_TOL, PP_NUTS_AGREE = 1e-4, 0.99
+# The vi phase (17): tests/test_vi.py's fit loop (Adam at a constant rate,
+# VI_DRAWS fresh draws a step) at its own depths, none cut: Planar and
+# Radial stacks by ELBO (BASELINE config 2), the spline + InvertibleLinear
+# stack by forward KL (config 3) at the JAX test's 8-d and at BASELINE's
+# 32-d (size 16). JAX's bands at 8-d: its test's own. At 32-d: what the JAX
+# package's flow meets on the CPU at the same settings
+# (tools/jax_vi_bands.py, float32, 8 seeds): each statistic's worst seed
+# plus 3 times its Monte-Carlo error at VI_SAMPLES exact target draws,
+# rounded up in the third decimal.
+VI_DRAWS, VI_LR, VI_SPLINE_LR = 256, 5e-3, 3e-3
+VI_PLANAR_STEPS, VI_RADIAL_STEPS, VI_SPLINE_STEPS = 800, 600, 500
+VI_COV_DRAWS, VI_ELBO_DRAWS, VI_SAMPLES = 8000, 20000, 4000
+VI_RT_TOL = 1e-3      # the JAX test's round trip
+VI_PROFILED = 5       # steps of each objective under torch.profiler
+VI_BANDS = {"correlated32": dict(var_rel=0.279, mean_sd=0.116,
+                                 corr_err=0.050),
+            "banana32": dict(var_rel=0.142, mean_sd=0.118, corr_err=0.023)}
 
 
 def log(*a):
@@ -1609,8 +1652,8 @@ def expect_launches(label, counts, accept, rqs):
     VJP each."""
     want = dict(accept_select=accept, accept_unfused=0, rqs=rqs, rqs_vjp=rqs)
     if counts != want:
-        raise AssertionError(f"per_point {label}: launches {counts}, the "
-                             f"code implies {want}")
+        raise AssertionError(f"{label}: launches {counts}, the code "
+                             f"implies {want}")
 
 
 def replay_draws(generator, chains, dim, dtype, device):
@@ -1672,7 +1715,8 @@ def pp_line(label, point, batch, z, step, layers, gen):
     tol = PP_RTOL[label]
     (lp_p, g_p), at_z = launched(lambda: pointwise_lp_grad(point)(z))
     lp_b, g_b = batched_lp_grad(batch)(z)
-    expect_launches(f"{label} value and gradient", at_z, 0, layers)
+    expect_launches(f"per_point {label} value and gradient", at_z, 0,
+                    layers)
     err_lp, err_g = rel_err(lp_p, lp_b), rel_err(g_p, g_b)
     if not (err_lp <= tol and err_g <= tol):
         raise AssertionError(f"per_point {label}: value off by {err_lp}, "
@@ -1699,10 +1743,10 @@ def pp_line(label, point, batch, z, step, layers, gen):
         hmc_kernel_chainbatched(batch, step, LEAPFROG, ones),
         batched_lp_grad(batch)))
     evals = 1 + LEAPFROG * PP_TRANSITIONS
-    expect_launches(f"{label} per-point transitions", n_p, PP_TRANSITIONS,
-                    layers * evals)
-    expect_launches(f"{label} batched transitions", n_b, PP_TRANSITIONS,
-                    layers * evals)
+    expect_launches(f"per_point {label} per-point transitions", n_p,
+                    PP_TRANSITIONS, layers * evals)
+    expect_launches(f"per_point {label} batched transitions", n_b,
+                    PP_TRANSITIONS, layers * evals)
     # the first transition chain by chain: a decision may differ only
     # where log u lies within PP_POS_TOL of min(0, dH)
     (s_p, i_p), (s_b, i_b) = first_p, first_b
@@ -1725,7 +1769,8 @@ def pp_line(label, point, batch, z, step, layers, gen):
         num_leapfrog=LEAPFROG, device=z.device, batched_target=False))
     run_s = time.perf_counter() - t0
     n = padded_length(PP_WARMUP) + padded_length(PP_DRAWS)
-    expect_launches(f"{label} run_hmc", n_run, n, layers * (1 + LEAPFROG * n))
+    expect_launches(f"per_point {label} run_hmc", n_run, n,
+                    layers * (1 + LEAPFROG * n))
     accept = float(res.accept_rate)
     stats = dict(
         chains=chains, value_rel_err=err_lp, grad_rel_err=err_g,
@@ -3386,6 +3431,232 @@ def fit_studies_phase(seed, permutation):
     return {k: sum(p[k] for p in paths)
             for k in ("accept_select", "rqs", "rqs_vjp")}
 
+# -------------------------------------------------------------------- vi
+def vi_flow(layers, dim, device):
+    from normalizingflow_tpu_torch import NormalizingFlow
+    from normalizingflow_tpu_torch.bijectors import Chain
+    from normalizingflow_tpu_torch.distributions import DiagNormal
+
+    return NormalizingFlow(DiagNormal(dim, device=device,
+                                      dtype=torch.float32), Chain(layers))
+
+
+def vi_spline_flow(size, gen, device):
+    """tests/test_vi.py's config-3 stack at `size` particles of 2
+    coordinates: 2 x SplineCoupling (K 8, B 4, hidden 32, masks (0,), (1,))
+    + InvertibleLinear."""
+    from normalizingflow_tpu_torch.bijectors import (
+        InvertibleLinear,
+        SplineCoupling,
+    )
+
+    kw = dict(generator=gen, device=device, dtype=torch.float32)
+    return vi_flow([SplineCoupling(size, 2, num_bins=8, tail_bound=4.0,
+                                   hidden_dim=32, mask=(a,), **kw)
+                    for a in range(2)]
+                   + [InvertibleLinear(2 * size, **kw)], 2 * size, device)
+
+
+def vi_fit(flow, loss_fn, steps, lr):
+    """tests/test_vi.py's loop: `steps` Adam updates at the constant rate
+    `lr` of loss_fn(). Returns the losses (read once, at the end) and the
+    seconds (synchronised)."""
+    from normalizingflow_tpu_torch.train.loop import Adam
+
+    opt = Adam(list(flow.parameters()), lambda count: lr)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = loss_fn()
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(steps)]
+    torch.cuda.synchronize()
+    return torch.stack(losses).tolist(), time.perf_counter() - t0, step
+
+
+def vi_spline(label, size, sample, cov, gen, device, gates):
+    """The config-3 stack fitted to the target that `sample(n)` draws from
+    (cov its covariance, numpy): VI_SPLINE_STEPS forward-KL steps, then
+    VI_SAMPLES draws and their round trip; `gates(stats, x)` raises on a
+    miss. Returns the fit's record and the step function (the next update
+    of the trained flow)."""
+    from normalizingflow_tpu_torch.train.objectives import forward_kl_loss
+    from tools.vi_moments import vi_stats
+
+    depth_cut(f"vi {label}", "train steps", VI_SPLINE_STEPS, 500)
+    flow = vi_spline_flow(size, gen, device)
+    (losses, secs, step), fit = launched(lambda: vi_fit(
+        flow, lambda: forward_kl_loss(flow, sample(VI_DRAWS))[0],
+        VI_SPLINE_STEPS, VI_SPLINE_LR))
+    expect_launches(f"vi {label} fit", fit, 0, 2 * VI_SPLINE_STEPS)
+
+    def draws():
+        with torch.no_grad():
+            x, _, z = flow.sample(VI_SAMPLES, generator=gen)
+            z2 = flow.forward(x)[0]
+        return x, z, z2
+
+    (x, z, z2), drawn = launched(draws)
+    # the inverse and the forward of both coupling layers, no gradient
+    want = dict(accept_select=0, accept_unfused=0, rqs=4, rqs_vjp=0)
+    if drawn != want:
+        raise AssertionError(f"vi {label} draws: launches {drawn}, the code "
+                             f"implies {want}")
+    stats = dict(vi_stats(x.cpu().numpy(), cov),
+                 rt=float((z2 - z).abs().max()),
+                 finite=bool(torch.isfinite(x).all()))
+    rec = dict(size=size, steps=VI_SPLINE_STEPS, first_loss=losses[0],
+               final_loss=losses[-1], train_s=secs,
+               ms_per_step=secs * 1e3 / VI_SPLINE_STEPS, **stats,
+               launches={k: fit[k] + drawn[k] for k in fit})
+    log(f"vi: {label} " + json.dumps(rec))
+    if not (stats["finite"] and math.isfinite(losses[-1])):
+        raise AssertionError(f"vi {label}: non-finite draws or loss")
+    if not stats["rt"] <= VI_RT_TOL:
+        raise AssertionError(f"vi {label}: round trip off by {stats['rt']}")
+    gates(stats, x)
+    return rec, step
+
+
+def vi_phase(seed):
+    """The module docstring's phase 17. Returns the launches by kernel."""
+    import numpy as np
+
+    from normalizingflow_tpu_torch.bijectors import (
+        ActNorm,
+        Invert,
+        Planar,
+        Radial,
+    )
+    from normalizingflow_tpu_torch.device import entry_device
+    from normalizingflow_tpu_torch.distributions import GaussianMixture
+    from normalizingflow_tpu_torch.targets import Banana, CorrelatedGaussian
+    from normalizingflow_tpu_torch.train.objectives import elbo, reverse_kl
+    from tools.vi_moments import banana_cov
+
+    device = entry_device()
+    kw = dict(device=device, dtype=torch.float32)
+    gen = torch.Generator(device=device).manual_seed(seed + 16)
+    t_phase = time.perf_counter()
+    stats = {}
+
+    # (i) config 2: no kernel on these flows
+    before = launch_counts()
+    depth_cut("vi planar", "train steps", VI_PLANAR_STEPS, 800)
+    planar_target = CorrelatedGaussian(2, 0.7, **kw)
+    planar = vi_flow([Invert(Planar(2, generator=gen, **kw))
+                      for _ in range(8)], 2, device)
+    losses, secs, planar_step = vi_fit(
+        planar, lambda: reverse_kl(planar, planar_target, VI_DRAWS,
+                                   generator=gen), VI_PLANAR_STEPS, VI_LR)
+    with torch.no_grad():
+        x = planar.sample(VI_COV_DRAWS, generator=gen)[0]
+    cov = np.cov(x.double().cpu().numpy().T)
+    cov_err = float(np.abs(cov - planar_target.cov.double().cpu().numpy())
+                    .max())
+    stats["planar"] = dict(first_loss=losses[0], final_loss=losses[-1],
+                           cov=cov.tolist(), cov_err=cov_err, train_s=secs,
+                           ms_per_step=secs * 1e3 / VI_PLANAR_STEPS)
+
+    depth_cut("vi radial", "train steps", VI_RADIAL_STEPS, 600)
+    gm = GaussianMixture([[1.0, 1.0]], [0.5], npoints=1, point_dim=2, **kw)
+    radial = vi_flow([Radial(2, generator=gen, **kw) for _ in range(6)], 2,
+                     device)
+    losses, secs, _ = vi_fit(
+        radial, lambda: reverse_kl(radial, gm, VI_DRAWS, generator=gen),
+        VI_RADIAL_STEPS, VI_LR)
+    with torch.no_grad():
+        mean = radial.sample(VI_COV_DRAWS, generator=gen)[0].double().mean(0)
+    stats["radial"] = dict(first_loss=losses[0], final_loss=losses[-1],
+                           mean=mean.tolist(), train_s=secs,
+                           ms_per_step=secs * 1e3 / VI_RADIAL_STEPS)
+
+    actnorm = vi_flow([ActNorm(3, **kw)], 3, device)
+    bound_target = CorrelatedGaussian(3, 0.5, **kw)
+    with torch.no_grad():
+        stats["elbo_bound"] = float(elbo(actnorm, bound_target, VI_ELBO_DRAWS,
+                                         generator=gen))
+        z = actnorm.prior.sample(512, generator=gen)
+        e = float(elbo(actnorm, CorrelatedGaussian(3, **kw), z=z))
+        r = float(reverse_kl(actnorm, CorrelatedGaussian(3, **kw), z=z))
+    stats["elbo_minus_reverse_kl"] = [e, r]
+    no_kernel_moved("vi config 2", before)
+    log("vi: config 2 " + json.dumps(stats))
+    p = stats["planar"]
+    if not (p["final_loss"] < p["first_loss"] - 0.2 and cov_err <= 0.25):
+        raise AssertionError(f"vi planar: loss {p['first_loss']} -> "
+                             f"{p['final_loss']}, covariance off by "
+                             f"{cov_err} (JAX's bands: a drop of 0.2, 0.25)")
+    if not bool(((mean - 1.0).abs() <= 0.2).all()):
+        raise AssertionError(f"vi radial: mean {mean.tolist()} not within "
+                             f"0.2 of (1, 1)")
+    if not stats["elbo_bound"] < 0.05:
+        raise AssertionError(f"vi: ELBO {stats['elbo_bound']} of a "
+                             f"normalised target above 0.05")
+    if not (math.isfinite(e) and e == -r):
+        raise AssertionError(f"vi: elbo {e} != -reverse_kl {-r}")
+
+    # (ii) config 3 at the JAX test's 8-d, with its gates
+    cg8 = CorrelatedGaussian(8, 0.6, **kw)
+    cov8 = cg8.cov.double().cpu().numpy()
+
+    def gates8(st, x):
+        cov = np.cov(x.double().cpu().numpy().T)
+        iu = np.triu_indices(8, 1)
+        diag = float(np.abs(np.diag(cov) - 1.0).max())
+        off = float(np.abs(cov[iu] - cov8[iu]).mean())
+        st.update(diag_err=diag, offdiag_err=off)
+        if not (diag < 0.3 and off < 0.2):
+            raise AssertionError(f"vi correlated8: max |diag - 1| {diag}, "
+                                 f"mean |off-diagonal error| {off} (JAX's "
+                                 f"bands 0.3, 0.2)")
+
+    stats["correlated8"], _ = vi_spline(
+        "correlated8", 4, lambda n: cg8.sample(n, generator=gen), cov8, gen,
+        device, gates8)
+
+    # (iii) config 3 at BASELINE's 32-d: JAX's own bands
+    def banded(name):
+        def gates(st, x):
+            off = {k: st[k] for k, b in VI_BANDS[name].items()
+                   if not st[k] <= b}
+            if off:
+                raise AssertionError(f"vi {name}: {off} outside JAX's "
+                                     f"bands {VI_BANDS[name]}")
+        return gates
+
+    cg32 = CorrelatedGaussian(**kw)   # (32, 0.9): BASELINE's target
+    stats["correlated32"], fkl_step = vi_spline(
+        "correlated32", 16, lambda n: cg32.sample(n, generator=gen),
+        cg32.cov.double().cpu().numpy(), gen, device, banded("correlated32"))
+    banana = Banana(32, b=0.1, s0=3.0)
+    stats["banana32"], _ = vi_spline(
+        "banana32", 16, lambda n: banana.sample(n, generator=gen, **kw),
+        banana_cov(32, banana.b, banana.s0), gen, device, banded("banana32"))
+
+    # (v) idle share of an ELBO step and of a forward-KL step (32-d)
+    def steps(fn):
+        return lambda: [fn() for _ in range(VI_PROFILED)]
+
+    (idle, counts) = launched(lambda: dict(
+        elbo_step=device_idle(steps(planar_step)),
+        forward_kl_step=device_idle(steps(fkl_step))))
+    expect_launches("vi profiled steps", counts, 0, 2 * VI_PROFILED)
+    stats["idle"] = idle
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log("vi: " + json.dumps({k: stats[k] for k in ("idle", "phase_s")}))
+    launches = dict(accept_select=0, rqs=counts["rqs"],
+                    rqs_vjp=counts["rqs_vjp"])
+    for name in ("correlated8", "correlated32", "banana32"):
+        for k in launches:
+            launches[k] += stats[name]["launches"][k]
+    return launches
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -3467,6 +3738,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
     parallel = parallel_phase(keep, phi4_cfg, args.seed)
     keep_dir.cleanup()
+    torch.cuda.empty_cache()
+    vi = vi_phase(args.seed)
     jax_resume = jax_resume_phase()
     parity = parity_phase(args.seed)
     fit_studies = fit_studies_phase(args.seed, fe_lj["permutation"])
@@ -3489,7 +3762,7 @@ def main(argv=None):
                        polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel,
                        jax_resume=jax_resume, parity=parity,
                        fit_studies=fit_studies, per_point=per_point,
-                       **bench_paths)
+                       vi=vi, **bench_paths)
     accept_paths = {k: v["accept_select"] for k, v in slice_paths.items()}
     path_accept = {(n, d, "main"): fused[(n, d, "main")]
                    for n, d in KERNEL_SHAPES[-4:] + [(SMC_PARTICLES, DIM)]}

@@ -245,3 +245,58 @@ def test_cli_pipeline_on_a_tiny_lj_solid(tmp_path, capsys):
     assert np.load(only).shape == (10, 12)
     assert sample_data.main([]) == 2 and train.main([]) == 2
     assert test.main([]) == 2 and fe.main([str(cfg)]) == 2
+
+
+def test_train_cli_and_fe_eval(tmp_path):
+    """tests/test_config_apps.py's pipeline on the port: apps.train on
+    Gaussian_rnvp.yaml (400 epochs, the CPU), its checkpoint, then fe_diff
+    at 500 samples: bar near the exact 0 and the four estimators agree;
+    the Q plot is written."""
+    from normalizingflow_tpu_torch.apps.fe_eval import fe_diff
+    from normalizingflow_tpu_torch.apps.test import load_trained
+    from normalizingflow_tpu_torch.apps.train import main as train_main
+
+    with open(os.path.join(ROOT, "configs", "Gaussian_rnvp.yaml")) as f:
+        base = yaml.safe_load(f)
+    base["device"] = "cpu"
+    base["train_parameters"]["max_epochs"] = 400
+    base["output"] = {k: str(tmp_path / d) + "/" for k, d in (
+        ("training_dir", "train"), ("testing_dir", "test"),
+        ("model_dir", "models"), ("best_model_dir", "best"))}
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(yaml.safe_dump(base))
+
+    assert train_main([str(cfg_path)]) == 0
+    assert (tmp_path / "models" / "Gaussian_rnvp_2l.pt").exists()
+    flow, potential, cfg = load_trained(tconfig.load_config(str(cfg_path)))
+    out = fe_diff(flow, potential, 500, cfg.dataset.nparticles,
+                  kT=cfg.dataset.kT, plot_path=str(tmp_path / "Q.png"),
+                  generator=torch.Generator().manual_seed(5))
+    assert abs(out["bar"]) < 0.5
+    assert abs(out["bar"] - out["emus"]) < 0.1
+    assert abs(out["bar"] - out["md"]) < 0.2
+    assert abs(out["bar"] - out["nf"]) < 0.2
+    assert (tmp_path / "Q.png").exists()
+
+
+def test_sample_data_segmented_generation(monkeypatch):
+    """200 frames at 16 chains are 13 draws: generate runs them as
+    segments of 8 and 5 from the carried state and returns exactly
+    (200, 96) finite frames, acceptance in (0.5, 1]."""
+    from normalizingflow_tpu_torch.apps import sample_data
+
+    segments = []
+    real = sample_data.run_hmc
+
+    def spy(*args, **kw):
+        segments.append(kw["num_samples"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(sample_data, "run_hmc", spy)
+    cfg = tconfig.load_config(os.path.join(ROOT, "configs", "Einstein.yaml"))
+    frames, acc = sample_data.generate(cfg, nframes=200, chains=16, seed=3,
+                                       device="cpu")
+    assert segments == [8, 5]
+    assert tuple(frames.shape) == (200, 96)
+    assert bool(torch.isfinite(frames).all())
+    assert 0.5 < acc <= 1.0

@@ -233,3 +233,54 @@ def test_fe_diff_ntrials_and_plot(tmp_path):
     for split in (False, True):
         fe_eval.plot_q(q, q + 1, str(tmp_path / f"q{split}.png"), split=split)
         assert (tmp_path / f"q{split}.png").stat().st_size > 0
+
+
+# ------------------------------------ tests/test_fe_eval.py on the port
+def identity_flow(dim=4):
+    """A DiagNormal(dim) flow through one ActNorm at its (identity) init,
+    and the target N(0, I) as a one-centre GaussianMixture."""
+    flow = nft.NormalizingFlow(td.DiagNormal(dim, **F64),
+                               tb.Chain([tb.ActNorm(dim, **F64)]))
+    target = td.GaussianMixture([[0.0] * dim], [1.0], npoints=1,
+                                point_dim=dim, **F64)
+    return flow, target
+
+
+def test_fe_diff_relaxes_both_ensembles(monkeypatch):
+    """relaxation=True relaxes the flow's frames and the data's, each with
+    the same kernel: two calls, on different (16, 4) trajectories."""
+    from normalizingflow_tpu_torch.mcmc import relaxation as relaxation_mod
+
+    flow, target = identity_flow()
+    calls = []
+    real = relaxation_mod.relaxation_step
+
+    def spy(fl, tg, traj, **kw):
+        calls.append(traj.detach().clone())
+        return real(fl, tg, traj, **kw)
+
+    monkeypatch.setattr(relaxation_mod, "relaxation_step", spy)
+    out = fe_eval.fe_diff(
+        flow, target, 16, 4, relaxation=True,
+        relaxation_kwargs=dict(path_len=2, step_size=1e-3, soft_factor=1.0),
+        generator=torch.Generator().manual_seed(3))
+    assert len(calls) == 2, "both the NF and MD ensembles must be relaxed"
+    assert calls[0].shape == calls[1].shape == (16, 4)
+    assert not torch.allclose(calls[0], calls[1])
+    for k in ("bar", "md", "nf", "emus"):
+        assert np.isfinite(out[k])
+
+
+def test_relaxed_fe_diff_consistent_with_unrelaxed():
+    """With a near-identity relaxation kernel the relaxed estimate agrees
+    with the unrelaxed one within 0.1, and both sit near the exact 0
+    (flow == target == N(0, I))."""
+    flow, target = identity_flow()
+    plain = fe_eval.fe_diff(flow, target, 512, 4,
+                            generator=torch.Generator().manual_seed(7))
+    relaxed = fe_eval.fe_diff(
+        flow, target, 512, 4, relaxation=True,
+        relaxation_kwargs=dict(path_len=2, step_size=1e-4, soft_factor=1.0),
+        generator=torch.Generator().manual_seed(7))
+    assert abs(float(plain["bar"])) < 0.1
+    assert abs(float(relaxed["bar"]) - float(plain["bar"])) < 0.1

@@ -190,3 +190,29 @@ def test_lj_samples_its_attached_data(tmp_path):
     assert bare.sample(4, generator=torch.Generator()).shape == (4, 3 * N)
     bare.update_data(data=x[:2], append=True)
     assert len(bare.dataset) == 8
+
+
+def test_malformed_file_raises_native(tmp_path):
+    """A truncated row: the C++ parser raises OSError."""
+    path = tmp_path / "bad.xyz"
+    path.write_text("4\n comment\n1 0.0 0.0\n")
+    with pytest.raises(OSError):
+        read_xyz_native(str(path))
+
+
+def test_native_parser_speed(tmp_path):
+    """The C++ parser reads 400 frames of 54 atoms faster than the Python
+    one (both after a warm read)."""
+    import time
+
+    path = str(tmp_path / "big.xyz")
+    x = np.random.default_rng(1).normal(size=(400, 54 * 3))
+    txyz.write_xyz(path, x, 54)
+    read_xyz_native(path)  # the build and the page cache
+    t0 = time.perf_counter()
+    read_xyz_native(path)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    txyz.read_xyz(path, native=False)
+    t_python = time.perf_counter() - t0
+    assert t_native < t_python, (t_native, t_python)

@@ -226,3 +226,22 @@ def test_kernel_wrapper_refuses_cpu_tensors_and_bad_bins():
         ops_rqs.rqs_cuda(x, torch.zeros(4, 129), torch.zeros(4, 129),
                          torch.zeros(4, 128), False, -1.0, 1.0, -1.0, 1.0)
     assert ops_rqs.rqs_cuda.launches == 0
+
+
+def test_twin_float32_accuracy():
+    """tests/test_rqs.py test_float32_accuracy: the twin in float32 stays
+    within 5e-5 / 1e-5 (y) and 5e-4 / 1e-4 (log-det) of itself in float64
+    on the same inputs."""
+    rng = np.random.default_rng(6)
+    x = np.linspace(-2.5, 2.5, 64)
+    w, h, d = params(rng, x.size, 8)
+    b = dict(left=-3.0, right=3.0, bottom=-3.0, top=3.0)
+    y64, ld64 = trqs.unconstrained_rqs(*map(t, (x, w, h, d)), inverse=False,
+                                       **b)
+    f32 = [t(a, np.float32) for a in (x, w, h, d)]
+    y32, ld32 = trqs.unconstrained_rqs(*f32, inverse=False, **b)
+    assert y32.dtype == torch.float32
+    np.testing.assert_allclose(y32.numpy(), y64.numpy(), atol=5e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(ld32.numpy(), ld64.numpy(), atol=5e-4,
+                               rtol=1e-4)

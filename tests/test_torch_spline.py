@@ -68,8 +68,8 @@ def perturbed(tree, seed, scale=0.1):
         tree)
 
 
-LAYERS = ["cl_mask0", "cl_mask1", "cl_mask2", "cl_mask01", "ar_periodic",
-          "ar_plain", "ar_asymmetric", "maf"]
+LAYERS = ["cl_mask0", "cl_mask1", "cl_mask2", "cl_mask01", "cl_mask02",
+          "cl_mask12", "ar_periodic", "ar_plain", "ar_asymmetric", "maf"]
 
 
 def layer_pair(kind):
@@ -179,6 +179,80 @@ def test_ar_dim1_has_no_conditioner():
     x = np.random.default_rng(0).standard_normal((BATCH, 1))
     close(tl.forward(t(x))[0], jl.forward(p, jnp.asarray(x))[0])
     close(tl.inverse(t(x))[1], jl.inverse(p, jnp.asarray(x))[1])
+
+
+def test_spline_ar_dim1_round_trips():
+    """tests/test_bijectors.py's dim-1 SplineAR: inverse(forward(x)) is x
+    and the log-dets cancel, on JAX's init."""
+    jl, tl = jb.SplineAR(1, num_bins=5, tail_bound=3.0, hidden_dim=8), \
+        tb.SplineAR(1, num_bins=5, tail_bound=3.0, hidden_dim=8, **F64)
+    tparams.from_jax(tl, jl.init(jax.random.PRNGKey(4)))
+    x = t(np.random.default_rng(4).standard_normal((BATCH, 1)))
+    with torch.no_grad():
+        y, ld = tl.forward(x)
+        x2, ld_inv = tl.inverse(y)
+    assert y.shape == x.shape and ld.shape == (BATCH,)
+    close(x2, x, rtol=0, atol=1e-8)
+    close(ld + ld_inv, np.zeros(BATCH), rtol=0, atol=1e-8)
+
+
+# ---------------------------------------- the Fe-shaped stack in float32
+# tests/test_f32_stack.py: 2 x SplineAR at the Fe config's widths (54
+# particles x 3, 32 bins, hidden 354, periodic, tail bound the Fe_400K box
+# half-length), in float32 against the same params in float64, with that
+# file's bounds.
+F32_DIM, F32_BINS, F32_HIDDEN, F32_BATCH = 162, 32, 354, 256
+F32_TAIL = 3.0 * 2.9115 / 2.0
+
+
+@pytest.fixture(scope="module")
+def f32_stack():
+    """(float32 stack, float64 stack, x): JAX's init (f32 leaves) in both,
+    x JAX's uniform draws inside 0.95 of the tail bound."""
+    jchain = jb.Chain([jb.SplineAR(F32_DIM, num_bins=F32_BINS,
+                                   tail_bound=F32_TAIL, hidden_dim=F32_HIDDEN,
+                                   periodic=True) for _ in range(2)])
+    params = jchain.init(jax.random.PRNGKey(0))
+    x = np.asarray(jax.random.uniform(
+        jax.random.PRNGKey(1), (F32_BATCH, F32_DIM), jnp.float32,
+        -0.95 * F32_TAIL, 0.95 * F32_TAIL))
+
+    def stack(dtype):
+        chain = tb.Chain([tb.SplineAR(F32_DIM, num_bins=F32_BINS,
+                                      tail_bound=F32_TAIL,
+                                      hidden_dim=F32_HIDDEN, periodic=True,
+                                      dtype=dtype) for _ in range(2)])
+        return tparams.from_jax(chain, params)
+
+    return stack(torch.float32), stack(torch.float64), torch.tensor(x)
+
+
+def test_f32_roundtrip_at_scale(f32_stack):
+    s32, _, x = f32_stack
+    with torch.no_grad():
+        z, ld = s32.forward(x)
+        x_back, ld_inv = s32.inverse(z)
+    assert z.dtype == ld.dtype == torch.float32
+    close(x_back, x, rtol=0, atol=5e-4)
+    close(ld + ld_inv, np.zeros(F32_BATCH), rtol=0, atol=5e-3)
+
+
+def test_f32_matches_f64_at_scale(f32_stack):
+    s32, s64, x = f32_stack
+    with torch.no_grad():
+        z32, ld32 = s32.forward(x)
+        z64, ld64 = s64.forward(x.double())
+    close(z32, z64, rtol=0, atol=2e-3)
+    close(ld32, ld64, rtol=1e-4, atol=2e-2)
+
+
+def test_f32_inverse_matches_f64_at_scale(f32_stack):
+    s32, s64, z = f32_stack
+    with torch.no_grad():
+        x32, ld32 = s32.inverse(z)
+        x64, ld64 = s64.inverse(z.double())
+    close(x32, x64, rtol=0, atol=5e-3)
+    close(ld32, ld64, rtol=1e-4, atol=5e-2)
 
 
 # ------------------------------------------------------- the NSF_CL flow
