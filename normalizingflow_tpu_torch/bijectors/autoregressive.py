@@ -25,6 +25,7 @@ import math
 import torch
 from torch import nn
 
+from ..utils.profiling import annotate
 from .base import Bijector
 from .rqs import apply_rqs, softplus, split_spline_params
 
@@ -174,15 +175,20 @@ class SplineAR(Bijector):
     def inverse(self, z):
         b = z.shape[0]
         raw0 = self.init_raw.expand(b, 3 * self.num_bins - 1)
-        x0, log_det = self._rqs(z[:, 0], *self.prep_spline(raw0),
-                                inverse=True)
+        with annotate("spline_ar.spline"):
+            x0, log_det = self._rqs(z[:, 0], *self.prep_spline(raw0),
+                                    inverse=True)
         cols = [x0]
         for i in range(1, self.dim):
-            x_partial = torch.cat(
-                [torch.stack(cols, dim=1), z.new_zeros(b, self.dim - i)], 1)
-            feats = self.features(x_partial) * self.cond.feature_mask(i)
-            raw = self.cond.apply_one(feats, i)
-            xi, ld = self._rqs(z[:, i], *self.prep_spline(raw), inverse=True)
+            with annotate("spline_ar.restack"):
+                x_partial = torch.cat([torch.stack(cols, dim=1),
+                                       z.new_zeros(b, self.dim - i)], 1)
+            with annotate("spline_ar.conditioner"):
+                feats = self.features(x_partial) * self.cond.feature_mask(i)
+                raw = self.cond.apply_one(feats, i)
+            with annotate("spline_ar.spline"):
+                xi, ld = self._rqs(z[:, i], *self.prep_spline(raw),
+                                   inverse=True)
             cols.append(xi)
             log_det = log_det + ld
         return torch.stack(cols, dim=1), log_det

@@ -36,6 +36,7 @@ import torch
 
 from ..device import check_on, entry_device
 from ..ops.hmc import accept_select_fused
+from ..utils.profiling import annotate
 from .adaptation import (
     da_init,
     da_step_size,
@@ -134,7 +135,8 @@ def _leapfrog_to_last_kick(lp_grad, position, momentum, grad, step_size,
             p = p + 0.5 * step_size * g  # the previous step's closing kick
         p = p + 0.5 * step_size * g
         q = q + step_size * (inv_mass_diag * p)
-        lp, g = lp_grad(q)
+        with annotate("hmc.grad"):
+            lp, g = lp_grad(q)
     return q, p, lp, g
 
 

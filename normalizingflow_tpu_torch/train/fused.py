@@ -40,6 +40,7 @@ import torch
 
 from ..device import check_on, entry_device
 from ..params import from_jax, to_numpy
+from ..utils.profiling import annotate
 from .checkpoint import (
     copy_checkpoint,
     is_jax_checkpoint,
@@ -184,8 +185,10 @@ def train_flow_fused(flow, generator, data_source, *, max_epochs=4000,
                                     device=mix_data.device)
                 x = mix_data[idx].to(x)
             optimizer.zero_grad(set_to_none=True)
-            loss, aux = forward_kl_loss(flow, x)
-            loss.backward()
+            with annotate("train.loss"):
+                loss, aux = forward_kl_loss(flow, x)
+            with annotate("train.backward"):
+                loss.backward()
             optimizer.step()
             row = torch.stack([loss, aux["logprob"], aux["prior"],
                                aux["log_det"]]).detach()

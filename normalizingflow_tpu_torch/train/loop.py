@@ -34,6 +34,7 @@ import torch
 
 from ..device import check_on, entry_device
 from ..params import jax_leaves
+from ..utils.profiling import annotate
 from .objectives import reverse_kl
 
 
@@ -241,8 +242,10 @@ def train_step(flow, target, optimizer, z):
     """One reverse-KL update on the prior draws `z`; returns the loss
     tensor (pre-update, as the JAX loop reports it)."""
     optimizer.zero_grad(set_to_none=True)
-    loss = reverse_kl(flow, target, z=z)
-    loss.backward()
+    with annotate("train.loss"):
+        loss = reverse_kl(flow, target, z=z)
+    with annotate("train.backward"):
+        loss.backward()
     optimizer.step()
     return loss.detach()
 

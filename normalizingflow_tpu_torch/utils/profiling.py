@@ -4,7 +4,8 @@ Twin of normalizingflow_tpu/utils/profiling.py, on torch.profiler:
 
   * `trace(log_dir)`: a profile of a region, CPU and CUDA activity,
     written into `log_dir` as a Chrome trace (chrome://tracing, Perfetto);
-  * `annotate(name)`: a named range in that trace (record_function);
+  * `annotate(name)`: a named range in that trace (record_function),
+    free while no profiler runs: the port's only span primitive;
   * `StepTimer`: wall clock and throughput, each `tick` waiting for the
     device that holds its `result`, as JAX's block_until_ready;
   * `debug_mode()`: autograd anomaly detection, which names the forward
@@ -18,6 +19,9 @@ import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+_NO_SPAN = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -35,8 +39,16 @@ def trace(log_dir):
 
 
 def annotate(name):
-    """A named range inside a trace."""
-    return torch.profiler.record_function(name)
+    """A named range (`with annotate("hmc.grad"): ...`) in whatever
+    torch.profiler session is running: `trace` above, a benchmark's traced
+    window or an operator's own profiler. It is recorded as a
+    `record_function` range, on that trace's clock, so the device work
+    launched inside it can be told apart by its name. While no profiler
+    runs it returns one shared no-op context and costs one attribute read.
+    The port's spans are named `<layer>.<part>`."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _synchronize(result):
