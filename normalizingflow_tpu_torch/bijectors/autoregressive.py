@@ -9,9 +9,11 @@ zero, so a JAX params tree loads leaf for leaf:
 
   * forward (density evaluation, training): every conditioner input is
     known, so all MLPs run in one batched einsum over the stacked weights;
-  * inverse (sampling): a plain loop over dims, one MLP per step. The JAX
-    package nests its scan to bound TPU trip counts; that has no effect on
-    the result and is not ported.
+  * inverse (sampling): a plain loop over dims, one MLP per step; where
+    no autograd or torch.func sees it, SplineAR writes each decoded column
+    into buffers instead of re-stacking the frame. The JAX package nests
+    its scan to bound TPU trip counts; that has no effect on the result
+    and is not ported.
 
 The RQS calls of both directions go through `apply_rqs`, so on the card
 they run the CUDA kernel (the JAX inverse calls `unconstrained_rqs`
@@ -172,12 +174,39 @@ class SplineAR(Bijector):
         z, ld = self._rqs(x, w, h, d, inverse=False)
         return z, torch.sum(ld, dim=1)
 
-    def inverse(self, z):
-        b = z.shape[0]
-        raw0 = self.init_raw.expand(b, 3 * self.num_bins - 1)
+    # Inverses taken on each path of `inverse` in this process.
+    inverse_paths = {"buffered": 0, "stacked": 0}
+
+    def _recorded(self, z):
+        """Whether autograd or a torch.func transform sees this inverse."""
+        if torch._C._are_functorch_transforms_active():
+            return True
+        return torch.is_grad_enabled() and (
+            z.requires_grad
+            or any(p.requires_grad for p in self.parameters()))
+
+    def _decode(self, z, i, raw):
+        """Dim i's RQS inverse with its spline parameters `raw`."""
         with annotate("spline_ar.spline"):
-            x0, log_det = self._rqs(z[:, 0], *self.prep_spline(raw0),
-                                    inverse=True)
+            return self._rqs(z[:, i], *self.prep_spline(raw), inverse=True)
+
+    def inverse(self, z):
+        """A loop over dims. Where nothing records the call, the
+        conditioner's input is kept in buffers written a column a step;
+        autograd and torch.func see the stacked form, which writes nothing
+        in place."""
+        raw0 = self.init_raw.expand(z.shape[0], 3 * self.num_bins - 1)
+        x0, log_det = self._decode(z, 0, raw0)
+        path = "stacked" if self._recorded(z) else "buffered"
+        SplineAR.inverse_paths[path] += 1
+        if path == "stacked":
+            return self._inverse_stacked(z, x0, log_det)
+        return self._inverse_buffered(z, x0, log_det)
+
+    def _inverse_stacked(self, z, x0, log_det):
+        """Each step stacks the decoded columns, pads them with zeros and
+        masks their features."""
+        b = z.shape[0]
         cols = [x0]
         for i in range(1, self.dim):
             with annotate("spline_ar.restack"):
@@ -186,12 +215,35 @@ class SplineAR(Bijector):
             with annotate("spline_ar.conditioner"):
                 feats = self.features(x_partial) * self.cond.feature_mask(i)
                 raw = self.cond.apply_one(feats, i)
-            with annotate("spline_ar.spline"):
-                xi, ld = self._rqs(z[:, i], *self.prep_spline(raw),
-                                   inverse=True)
+            xi, ld = self._decode(z, i, raw)
             cols.append(xi)
             log_det = log_det + ld
         return torch.stack(cols, dim=1), log_det
+
+    def _inverse_buffered(self, z, x0, log_det):
+        """Each step writes the newly decoded column into the frame `x`
+        and its embedding, by `features`' ops, into `feats`; the features
+        of dims not decoded yet stay 0, as the mask makes them, so MLP i
+        sees the stacked form's values bit for bit."""
+        b, n = z.shape[0], self.dim - 1
+        x = x0.new_zeros(b, self.dim)
+        feats = x0.new_zeros(b, self.cond.n_feat) if n else None
+        xi = x0
+        for i in range(1, self.dim):
+            with annotate("spline_ar.restack"):
+                x[:, i - 1] = xi
+                if self.periodic:
+                    ang = math.pi * xi / self.width
+                    torch.cos(ang, out=feats[:, i - 1])
+                    torch.sin(ang, out=feats[:, n + i - 1])
+                else:
+                    feats[:, i - 1] = xi
+            with annotate("spline_ar.conditioner"):
+                raw = self.cond.apply_one(feats, i)
+            xi, ld = self._decode(z, i, raw)
+            log_det = log_det + ld
+        x[:, n] = xi
+        return x, log_det
 
 
 class MaskedAffineAR(Bijector):

@@ -96,11 +96,15 @@ def fkl_steps(steps=3):
         p.detach() for p in flow.parameters()]
 
 
-def spline_inverse(dim=6):
+def spline_inverse(dim=6, recorded=False):
+    """The inverse on its buffered path, or with `recorded` on the stacked
+    path autograd sees."""
     gen = torch.Generator().manual_seed(8)
     layer = SplineAR(dim, num_bins=4, tail_bound=3.0, hidden_dim=8,
                      generator=gen, dtype=DT)
     z = 2.0 * torch.rand(5, dim, generator=gen, dtype=DT) - 1.0
+    if recorded:
+        return tuple(v.detach() for v in layer.inverse(z))
     with torch.no_grad():
         return layer.inverse(z)
 
@@ -178,13 +182,26 @@ def test_train_flow_fused_records_one_loss_and_one_backward_a_step():
     _assert_one_loss_then_backward_a_step(prof, 4)
 
 
-def test_spline_ar_inverse_records_its_three_parts_each_dim_step():
-    _, prof = profiled(lambda: spline_inverse(6))
+def _assert_three_parts_each_dim_step(recorded, monkeypatch):
+    paths = {"buffered": 0, "stacked": 0}
+    monkeypatch.setattr(SplineAR, "inverse_paths", paths)
+    _, prof = profiled(lambda: spline_inverse(6, recorded))
+    assert paths == {"buffered": int(not recorded), "stacked": int(recorded)}
     found = ranges(prof, SPLINE_SPANS)
     assert len(found["spline_ar.restack"]) == 5
     assert len(found["spline_ar.conditioner"]) == 5
     assert len(found["spline_ar.spline"]) == 6
     assert_disjoint(sorted(sum(found.values(), [])))
+
+
+def test_spline_ar_inverse_records_its_three_parts_each_dim_step(
+        monkeypatch):
+    _assert_three_parts_each_dim_step(False, monkeypatch)
+
+
+def test_spline_ar_stacked_inverse_records_its_three_parts_each_dim_step(
+        monkeypatch):
+    _assert_three_parts_each_dim_step(True, monkeypatch)
 
 
 @pytest.mark.parametrize("path", [
@@ -193,8 +210,9 @@ def test_spline_ar_inverse_records_its_three_parts_each_dim_step():
     rkl_steps,
     fkl_steps,
     spline_inverse,
+    lambda: spline_inverse(recorded=True),
 ], ids=["run_hmc", "run_hmc_per_point", "train_step", "train_flow_fused",
-        "spline_ar_inverse"])
+        "spline_ar_inverse", "spline_ar_inverse_stacked"])
 def test_outputs_are_the_same_bits_with_and_without_a_profiler(path):
     plain = path()
     traced, _ = profiled(path)

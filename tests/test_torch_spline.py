@@ -196,6 +196,103 @@ def test_spline_ar_dim1_round_trips():
     close(ld + ld_inv, np.zeros(BATCH), rtol=0, atol=1e-8)
 
 
+# ------------------------------- the SplineAR inverse's two paths
+@pytest.fixture
+def inverse_paths(monkeypatch):
+    """SplineAR's counter of inverses a path, from 0 for this test."""
+    counts = {"buffered": 0, "stacked": 0}
+    monkeypatch.setattr(tb.SplineAR, "inverse_paths", counts)
+    return counts
+
+
+def ar_layers(kind, dim, depth, dtype, seed=5):
+    """`depth` SplineAR layers of `kind` (a Chain if more than one) and
+    latents inside the tail bound."""
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(num_bins=K, tail_bound=B, hidden_dim=HIDDEN,
+              periodic=kind != "plain", generator=gen, dtype=dtype)
+    if kind == "asymmetric":
+        kw.update(input_bounds=(-2.0, 3.5), output_bounds=(-1.0, 2.0))
+    layers = [tb.SplineAR(dim, **kw) for _ in range(depth)]
+    flow = layers[0] if depth == 1 else tb.Chain(layers)
+    lo, hi = kw.get("output_bounds", (-B, B))
+    z = lo + (hi - lo) * (0.05 + 0.9 * torch.rand(
+        BATCH, dim, generator=gen, dtype=dtype))
+    return flow, z
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("dim", [2, 3, 7])
+@pytest.mark.parametrize("kind", ["periodic", "plain", "asymmetric"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+def test_spline_ar_buffered_inverse_is_the_stacked_bits(
+        inverse_paths, dtype, kind, dim, depth):
+    flow, z = ar_layers(kind, dim, depth, dtype)
+    x_st, ld_st = flow.inverse(z)
+    assert inverse_paths == {"buffered": 0, "stacked": depth}
+    with torch.no_grad():
+        x_bu, ld_bu = flow.inverse(z)
+    assert inverse_paths == {"buffered": depth, "stacked": depth}
+    assert x_bu.shape == (BATCH, dim) and x_bu.is_contiguous()
+    assert torch.equal(x_bu, x_st.detach())
+    assert torch.equal(ld_bu, ld_st.detach())
+
+
+@pytest.mark.parametrize("kind", ["ar_periodic", "ar_plain", "ar_asymmetric"])
+def test_spline_ar_buffered_inverse_matches_jax(inverse_paths, kind):
+    jl, tl, p, x = loaded_pair(kind)
+    jy, _ = jl.forward(p, jnp.asarray(x))
+    jx, jild = jl.inverse(p, jy)
+    with torch.no_grad():
+        tx, tild = tl.inverse(t(np.asarray(jy)))
+    assert inverse_paths == {"buffered": 1, "stacked": 0}
+    close(tx, jx)
+    close(tild, jild)
+    close(tx, x, rtol=1e-9, atol=1e-9)      # round trip
+
+
+def _inverse_under(case, layer, z):
+    if case == "no_grad":
+        with torch.no_grad():
+            return layer.inverse(z)
+    if case == "inference_mode":
+        with torch.inference_mode():
+            return layer.inverse(z)
+    if case == "param_grad":
+        return layer.inverse(z)
+    layer.requires_grad_(False)
+    if case == "frozen":
+        return layer.inverse(z)
+    if case == "z_grad_frozen":
+        return layer.inverse(z.clone().requires_grad_(True))
+    if case == "vmap_no_grad":
+        with torch.no_grad():
+            return torch.func.vmap(lambda zi: tuple(
+                v[0] for v in layer.inverse(zi[None])))(z)
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case, path", [
+    ("no_grad", "buffered"), ("inference_mode", "buffered"),
+    ("frozen", "buffered"), ("param_grad", "stacked"),
+    ("z_grad_frozen", "stacked"), ("vmap_no_grad", "stacked")])
+def test_spline_ar_inverse_path_follows_what_records_it(inverse_paths, case,
+                                                        path):
+    """Buffered only where nothing records the inverse: grad mode off, or
+    neither z nor a parameter requiring grad, and no torch.func
+    transform."""
+    layer, z = ar_layers("periodic", 4, 1, torch.float64)
+    with torch.no_grad():
+        x_ref, ld_ref = layer.inverse(z)
+    inverse_paths.update(buffered=0, stacked=0)
+    x, ld = _inverse_under(case, layer, z)
+    assert inverse_paths == {"buffered": int(path == "buffered"),
+                             "stacked": int(path == "stacked")}
+    close(x, x_ref.numpy(), rtol=1e-13, atol=1e-14)
+    close(ld, ld_ref.numpy(), rtol=1e-13, atol=1e-14)
+
+
 # ---------------------------------------- the Fe-shaped stack in float32
 # tests/test_f32_stack.py: 2 x SplineAR at the Fe config's widths (54
 # particles x 3, 32 bins, hidden 354, periodic, tail bound the Fe_400K box
