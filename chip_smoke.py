@@ -213,6 +213,25 @@ The multi-device layer (parallel/) and the last modules run after them:
               kernels (K = 8, B = 4; their shapes are in PATH_RQS); ms a
               step of each fit; the device idle share of an ELBO and of a
               forward-KL step.
+ 18. circular: the RQS kernels' circular mode (csrc/rqs.cu's
+              rqs_circular_fwd and rqs_circular_vjp, the splines of
+              bijectors/transformer.py), run right after phase 3: forward
+              and inverse against the circular plain version and the VJP
+              against its closed-form plain VJP, all in float64, on rows
+              inside the box (NaN rows too, and rows on both ends and on
+              knots) at CRQS_SHAPES, the lj500_nsf_tcl layer's (64000, 16)
+              and a small one; the kernel's VJP no further from float64
+              than the float32 autograd recompute; a round trip where the
+              slope lies in [0.1, 10]; the ends
+              -L/2 and L/2 mapped to one point of the circle with one
+              slope; ms of each beside the plain versions and its bound
+              (bytes at 3.35 TB/s on the run's data). Then the main
+              path: NSF_TCL at lj500_nsf_tcl's widths and depth through
+              config.setup_model, a reverse-KL train_step with
+              bench_optimizer, flow.sample and flow.log_prob (8 draws
+              each), with exact launch counts (one circular forward a
+              layer each way, one VJP a layer in the backward, no other
+              kernel); crqs and crqs_vjp in the kernels line.
 Every depth cut is printed on a line of its own. Then one JSON line
 describing every kernel, and last the JSON status line. Imports nothing of
 JAX. Exits non-zero without a CUDA device.
@@ -1143,7 +1162,7 @@ def bound(nbytes, ops):
             "operations", nbytes)
 
 
-def rqs_bounds(x, w, h, inverse, bounds):
+def rqs_bounds(x, w, h, inverse, bounds, circular=False):
     """Least times of the forward and of the VJP on this run's data, counted
     in the 32-byte sectors the function must read and write.
 
@@ -1151,8 +1170,9 @@ def rqs_bounds(x, w, h, inverse, bounds):
     0, gx = grad_y, and zero parameter gradients. A row inside needs all of
     its w and h (the softmaxes), grad_ld, and of d only its bin's two
     derivative logits (one at the edge bins 0 and K-1, whose outer slope is
-    pinned); the bin is found on the float64 knots. Every output is written
-    whole: y and log-det, or gx, gw, gh and gd. Operations are counted from
+    pinned; with `circular`, d has K logits and bin K-1's upper slope is
+    logit 0's); the bin is found on the float64 knots. Every output is
+    written whole: y and log-det, or gx, gw, gh and gd. Operations are counted from
     the jnp function for the rows inside (about 11K per softmax-floor-cumsum
     of w and h, 5K for the derivatives, K comparisons, 50 for the map; the
     VJP adds the map's reverse, about 150, and the spread onto 2K logits,
@@ -1175,8 +1195,10 @@ def rqs_bounds(x, w, h, inverse, bounds):
         (h if inverse else w).double(), k,
         DEFAULT_MIN_BIN_HEIGHT if inverse else DEFAULT_MIN_BIN_WIDTH, lo, hi)
     idx = _search_bins(knots, x.double().clamp(lo, hi))[:, None]
-    m = torch.arange(k - 1, device=x.device)
-    need_d = inside[:, None] & ((m == idx - 1) | (m == idx))
+    nd = k if circular else k - 1
+    m = torch.arange(nd, device=x.device)
+    lower, upper = (idx, (idx + 1) % k) if circular else (idx - 1, idx)
+    need_d = inside[:, None] & ((m == lower) | (m == upper))
     every = torch.ones_like(inside)
     column = sector_bytes(every)                  # x, y, log-det, gy, gx
     params = sector_bytes(inside[:, None].expand(n, k))  # w or h
@@ -1185,7 +1207,7 @@ def rqs_bounds(x, w, h, inverse, bounds):
     fwd = bound(3 * column + 2 * params + d_read, n_in * (28 * k + 50))
     vjp = bound(3 * column + sector_bytes(inside) + 2 * params + d_read
                 + 2 * sector_bytes(every[:, None].expand(n, k))
-                + sector_bytes(every[:, None].expand(n, k - 1)),
+                + sector_bytes(every[:, None].expand(n, nd)),
                 n_in * (36 * k + 200))
     return fwd, vjp, dict(rows_inside=n_in / n,
                           d_bytes_per_row_inside=d_read / max(n_in, 1))
@@ -1297,6 +1319,193 @@ def check_rqs_vjp(x, w, h, d, inverse, bounds, label, gen, flush,
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 recompute_ms=recompute_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
+
+
+# ------------------------------------------------------------ circular
+CRQS_SHAPES = [(64000, 16), (1000, 16)]
+CRQS_HALF = 0.5 * (500 / 1.28) ** (1.0 / 3.0)  # lj500_nsf_tcl's box / 2
+
+
+def crqs_inputs(n, k, half, inverse, gen):
+    """Spline logits and points inside [-half, half]; every fifth row on a
+    knot of the plain version, rows 1 and 2 on the two ends, rows 3::97
+    NaN."""
+    from normalizingflow_tpu_torch.bijectors.rqs import _normalize_bins
+
+    kw = dict(device=gen.device, dtype=torch.float32, generator=gen)
+    w, h, d = (torch.randn(n, k, **kw) for _ in range(3))
+    x = (2.0 * torch.rand(n, **kw) - 1.0) * half
+    knots, _ = _normalize_bins(h if inverse else w, k, 1e-3, -half, half)
+    rows = torch.arange(0, n, 5, device=gen.device)
+    at = torch.randint(0, k + 1, (rows.numel(),), device=gen.device,
+                       generator=gen)
+    x[rows] = knots[rows, at]
+    x[1], x[2] = -half, half
+    x[3::97] = float("nan")
+    return x, w, h, d
+
+
+def circular_phase(n, k, gen, flush):
+    """Phase 18 at (n, k): the circular kernels against their plain
+    versions in float64, both directions, and the ends' continuity.
+    Returns {(n, k, inverse): (forward's numbers, the VJP's)}."""
+    from normalizingflow_tpu_torch.ops.rqs import (
+        crqs_cuda,
+        crqs_vjp_cuda,
+        crqs_vjp_plain,
+        plain_crqs,
+        twin_crqs_vjp,
+    )
+
+    bounds = (-CRQS_HALF, CRQS_HALF) * 2
+    out = {}
+    for inverse in (False, True):
+        label = f"circular ({n},{k}) {'inverse' if inverse else 'forward'}"
+        x, w, h, d = crqs_inputs(n, k, CRQS_HALF, inverse, gen)
+        want = plain_crqs(*(t.double() for t in (x, w, h, d)), inverse,
+                          *bounds)
+        got = crqs_cuda(x, w, h, d, inverse, *bounds)
+        torch.cuda.synchronize()
+        err_y, err_ld = compare_rqs(*got, *want, label)
+        # the round trip, on rows whose slope lies in [0.1, 10]: where the
+        # map is flatter, float32's rounding of y moves the way back more
+        back = crqs_cuda(got[0], w, h, d, not inverse, *bounds)[0]
+        fair = torch.isfinite(x) & (got[1].abs() <= math.log(10.0))
+        trip = float((back - x)[fair].abs().max())
+        if not trip <= 1e-4:
+            raise AssertionError(f"{label}: round trip off by {trip}")
+        gy, gld = (torch.randn(n, device=x.device, generator=gen)
+                   for _ in range(2))
+        args = (x, w, h, d, gy, gld, inverse, *bounds)
+        vjp_want = crqs_vjp_plain(*(t.double() for t in args[:6]),
+                                  *args[6:])
+        vjp_got = crqs_vjp_cuda(*args)
+        torch.cuda.synchronize()
+        err_g = compare_vjp(vjp_got, vjp_want, label)
+        gap = vjp_gap(twin_crqs_vjp(*args), vjp_want)
+        if not err_g <= gap:
+            raise AssertionError(f"{label}: kernel VJP off the float64 VJP "
+                                 f"by {err_g}, float32 autograd by {gap}")
+        ms = cuda_time_ms(lambda: crqs_cuda(x, w, h, d, inverse, *bounds),
+                          flush=flush)
+        plain_ms = cuda_time_ms(lambda: plain_crqs(x, w, h, d, inverse,
+                                                   *bounds), flush=flush)
+        vjp_ms = cuda_time_ms(lambda: crqs_vjp_cuda(*args), reps=VJP_REPS,
+                              flush=flush)
+        vjp_plain_ms = cuda_time_ms(lambda: crqs_vjp_plain(*args),
+                                    reps=VJP_REPS, flush=flush)
+        fwd_bound, vjp_bound, _ = rqs_bounds(x, w, h, inverse, bounds,
+                                             circular=True)
+        log(f"kernels: rqs {label} f32 ok: max_abs_err y {err_y:.3g} ld "
+            f"{err_ld:.3g}, round trip {trip:.3g}, ms {ms:.5f}, plain_ms "
+            f"{plain_ms:.5f}, bound_ms {fwd_bound[0]:.5f} ({fwd_bound[1]}, "
+            f"{fwd_bound[2] / 1e6:.2f} MB); vjp max_abs_err {err_g:.3g} "
+            f"(float32 autograd recompute {gap:.3g}), ms {vjp_ms:.5f}, "
+            f"plain_ms {vjp_plain_ms:.5f}, bound_ms {vjp_bound[0]:.5f} "
+            f"({vjp_bound[1]}, {vjp_bound[2] / 1e6:.2f} MB)")
+        out[(n, k, inverse)] = tuple(
+            dict(max_abs_err=err, ms=t, plain_ms=p, bound_ms=b[0],
+                 bound_by=b[1])
+            for err, t, p, b in ((max(err_y, err_ld), ms, plain_ms,
+                                  fwd_bound),
+                                 (err_g, vjp_ms, vjp_plain_ms, vjp_bound)))
+    # the two ends are one point of the circle, with one slope
+    x = torch.tensor([-CRQS_HALF, CRQS_HALF], device="cuda")
+    w, h, d = (torch.randn(1, k, device="cuda", generator=gen).expand(2, k)
+               for _ in range(3))
+    y, ld = crqs_cuda(x, w, h, d, False, *bounds)
+    if not (torch.allclose(y, x, atol=1e-5) and abs(float(ld[0] - ld[1]))
+            <= 1e-5):
+        raise AssertionError(f"circular ends: y {y.tolist()}, log-slopes "
+                             f"{ld.tolist()}")
+    return out
+
+
+CRQS_PATH_BATCH = 8  # draws of the NSF_TCL path's step, sample and density
+
+
+def fcc_sites(cells, boxlength):
+    """The fcc lattice of cells^3 cubic cells filling [-L/2, L/2)^3,
+    (4 cells^3, 3)."""
+    a = boxlength / cells
+    basis = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.5, 0.5], [0.5, 0.0, 0.5],
+                          [0.5, 0.5, 0.0]], dtype=torch.float64)
+    r = torch.arange(cells, dtype=torch.float64)
+    grid = torch.cartesian_prod(r, r, r)
+    sites = (grid[:, None, :] + basis + 0.25) * a - 0.5 * boxlength
+    return sites.reshape(-1, 3)
+
+
+def circular_path(seed, device="cuda", cells=5, layers=24, embed_dim=256):
+    """The circular kernels' launches on the main path: NSF_TCL at
+    lj500_nsf_tcl's widths and depth (by default: 24 coupling layers, N =
+    500 in 5^3 fcc cells) built by `config.setup_model`, one reverse-KL `train_step` with
+    `bench_optimizer`, then `flow.sample` and `flow.log_prob` without
+    gradient, each at CRQS_PATH_BATCH draws, the counters zeroed before
+    each. A layer launches one circular forward in either direction and
+    its VJP once in the backward; no other kernel runs. Returns
+    {path: (forward launches, VJP launches)}."""
+    from normalizingflow_tpu_torch.config import (
+        Config,
+        DatasetConfig,
+        FlowConfig,
+        PriorConfig,
+        setup_model,
+    )
+    from normalizingflow_tpu_torch.ops import rqs
+    from normalizingflow_tpu_torch.train.loop import (
+        bench_optimizer,
+        train_step,
+    )
+
+    n = 4 * cells ** 3
+    box = (n / 1.28) ** (1.0 / 3.0)
+    cfg = Config(
+        dataset=DatasetConfig(potential="LJ", nparticles=n, dim=3, kT=2.0,
+                              rho=1.28, cutoff=2.7, shift=True),
+        flow=FlowConfig(type="NSF_TCL", nlayers=layers, nsplines=16,
+                        embed_dim=embed_dim, num_heads=2, num_blocks=2,
+                        num_freqs=8),
+        prior=PriorConfig(type="EinsteinCrystal", alpha=1000.0,
+                          centers=fcc_sites(cells, box).tolist()))
+    gen = torch.Generator(device=device).manual_seed(seed)
+    flow, target, _ = setup_model(cfg, device=device, dtype=torch.float32,
+                                  generator=gen)
+    opt = bench_optimizer(list(flow.parameters()), 100000, 500, 1e-4)
+
+    def counted(fn):
+        reset_launch_counts()
+        rqs.crqs_cuda.launches = rqs.crqs_vjp_cuda.launches = 0
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        if launch_counts() != dict.fromkeys(launch_counts(), 0):
+            raise AssertionError(f"NSF_TCL path: launches {launch_counts()}"
+                                 f"; no other kernel runs there")
+        return out, (rqs.crqs_cuda.launches, rqs.crqs_vjp_cuda.launches)
+
+    z = flow.prior.sample(CRQS_PATH_BATCH, generator=gen)
+    loss, step = counted(lambda: train_step(flow, target, opt, z))
+    with torch.no_grad():
+        (x, log_px, _), sample = counted(
+            lambda: flow.sample(CRQS_PATH_BATCH, generator=gen))
+        log_q, density = counted(lambda: flow.log_prob(x))
+    paths = dict(nsf_tcl_train_step=step, nsf_tcl_sample=sample,
+                 nsf_tcl_density=density)
+    want = dict(nsf_tcl_train_step=(layers, layers),
+                nsf_tcl_sample=(layers, 0), nsf_tcl_density=(layers, 0))
+    if paths != want:
+        raise AssertionError(f"NSF_TCL path: launches (forward, VJP) "
+                             f"{paths}, the code implies {want}")
+    # float32 densities of ~1500 coordinates, through 24 layers each way
+    gap = float((log_q - log_px).abs().max())
+    if not (math.isfinite(float(loss))
+            and gap <= 1e-3 + 1e-5 * float(log_px.abs().max())):
+        raise AssertionError(f"NSF_TCL path: loss {float(loss)}, density "
+                             f"off the sample's by {gap}")
+    log(f"circular path: {json.dumps(paths)}, loss {float(loss):.6g}, "
+        f"density round trip {gap:.3g}")
+    return paths
 
 
 # ------------------------------------------------------------ bench
@@ -3658,6 +3867,22 @@ def vi_phase(seed):
     return launches
 
 
+def kernel_entry(name, source, replaces, by_path, timed, errs, checks):
+    """A kernel's record in the kernels line: its launches by path, its
+    numbers at the main shape `timed` and at every checked shape."""
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=max(errs), ms=timed["ms"],
+        plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
+        bound_by=timed["bound_by"], library_ms=None,
+        path_shapes=[dict(shape=list(key), **{
+            k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "max_abs_err")},
+            share_of_bound=r["bound_ms"] / r["ms"])
+            for key, r in checks.items()])
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--full", action="store_true",
@@ -3683,6 +3908,20 @@ def main(argv=None):
 
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     flush = torch.empty(64 * 2**20, dtype=torch.float32, device="cuda")
+    circular = {}
+    for shape in CRQS_SHAPES:
+        circular.update(circular_phase(*shape, gen, flush))
+    crqs_paths = circular_path(args.seed)
+    torch.cuda.empty_cache()
+    crqs_main = (*CRQS_SHAPES[0], False)
+    circular_kernels = [
+        kernel_entry(name, "normalizingflow_tpu_torch/csrc/rqs.cu", None,
+                     {p: c[i] for p, c in crqs_paths.items()},
+                     circular[crqs_main][i],
+                     [r[i]["max_abs_err"] for r in circular.values()],
+                     {key: r[i] for key, r in circular.items()})
+        for i, name in enumerate(("crqs", "crqs_vjp"))]
+    log(f"circular: {time.perf_counter() - t0:.1f} s from the build's start")
     unfused = {shape: check_accept_select(*shape, gen, flush)
                for shape in KERNEL_SHAPES + WIDE_SHAPES}
     fused = {(*shape, mix): check_accept_fused(*shape, mix, gen, flush)
@@ -3745,19 +3984,6 @@ def main(argv=None):
     fit_studies = fit_studies_phase(args.seed, fe_lj["permutation"])
     log(f"run: {time.perf_counter() - t0:.1f} s from the build's start")
 
-    def entry(name, source, replaces, by_path, timed, errs, checks):
-        return dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(errs), ms=timed["ms"],
-            plain_ms=timed["plain_ms"], bound_ms=timed["bound_ms"],
-            bound_by=timed["bound_by"], library_ms=None,
-            path_shapes=[dict(shape=list(key), **{
-                k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "max_abs_err")},
-                share_of_bound=r["bound_ms"] / r["ms"])
-                for key, r in checks.items()])
-
     slice_paths = dict(fe_fe400k=fe_fe400k, fe_phi4=fe_phi4, polymer=poly,
                        polymer_rnvp=rnvp, **nuts, smc_phi4=smc, **parallel,
                        jax_resume=jax_resume, parity=parity,
@@ -3769,7 +3995,7 @@ def main(argv=None):
 
     main_shape = (SP_CHAINS * SP_SIZE * (SP_SPACE - 1), SP_BINS, True, "sym")
     kernels = [
-        entry("accept_select",
+        kernel_entry("accept_select",
               "normalizingflow_tpu_torch/csrc/accept_select.cu",
               "normalizingflow_tpu/ops/hmc_pallas.py:56",
               dict(funnel=funnel, spline=spline["accept_select"],
@@ -3778,7 +4004,7 @@ def main(argv=None):
               fused[(CHAINS, DIM, "main")],
               [r["max_abs_err"] for r in (*fused.values(),
                                           *unfused.values())], path_accept),
-        entry("rqs", "normalizingflow_tpu_torch/csrc/rqs.cu",
+        kernel_entry("rqs", "normalizingflow_tpu_torch/csrc/rqs.cu",
               "normalizingflow_tpu/ops/rqs_pallas.py:45",
               dict(spline=spline["rqs"], fe_lj=fe_lj["rqs"],
                    fe_einstein=fe_einstein["rqs"],
@@ -3788,7 +4014,7 @@ def main(argv=None):
               + [p["max_abs_err"] for p in (spline, fe_lj, fe_fe400k,
                                             fe_phi4, poly, parity)],
               {key: rqs_results[key] for key in PATH_RQS}),
-        entry("rqs_vjp", "normalizingflow_tpu_torch/csrc/rqs.cu",
+        kernel_entry("rqs_vjp", "normalizingflow_tpu_torch/csrc/rqs.cu",
               "normalizingflow_tpu/ops/rqs_pallas.py:264",
               dict(spline=spline["rqs_vjp"], fe_lj=fe_lj["rqs_vjp"],
                    fe_einstein=fe_einstein["rqs_vjp"],
@@ -3798,6 +4024,7 @@ def main(argv=None):
               + [p["max_abs_err_vjp"] for p in (spline, fe_lj, fe_fe400k,
                                                 fe_phi4, poly, parity)],
               {key: vjp_results[key] for key in PATH_RQS}),
+        *circular_kernels,
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

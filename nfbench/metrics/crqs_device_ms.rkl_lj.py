@@ -1,0 +1,14 @@
+"""Device ms a step of the kernels launched while the program's `tcl.spline`
+span was open on the host: each coupling layer's gather, circular spline,
+shift, wrap and scatter, in the forward pass (trace: ranges and kernel
+records)."""
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or not t.units:
+        return None
+    seconds = t.seconds_launched_in("tcl.spline")
+    if seconds is None:
+        return None
+    return 1e3 * seconds / t.units

@@ -150,14 +150,45 @@ def unconstrained_rqs(inputs, unnormalized_widths, unnormalized_heights,
     derivative logits."""
     left, right, bottom, top = resolve_bounds(tail_bound, left, right,
                                               bottom, top)
-    lo, hi = (bottom, top) if inverse else (left, right)
-    inside = (inputs >= lo) & (inputs <= hi)
-
     constant = math.log(math.expm1(1.0 - min_derivative))
     pad = torch.full_like(unnormalized_derivatives[..., :1], constant)
     padded_raw = torch.cat([pad, unnormalized_derivatives, pad], dim=-1)
     derivatives = min_derivative + softplus(padded_raw)
+    return _rqs_in_domain(inputs, unnormalized_widths, unnormalized_heights,
+                          derivatives, inverse, left, right, bottom, top,
+                          min_bin_width, min_bin_height)
 
+
+def circular_rqs(inputs, unnormalized_widths, unnormalized_heights,
+                 unnormalized_derivatives, *, inverse=False, left=None,
+                 right=None, bottom=None, top=None, tail_bound=1.0,
+                 min_bin_width=DEFAULT_MIN_BIN_WIDTH,
+                 min_bin_height=DEFAULT_MIN_BIN_HEIGHT,
+                 min_derivative=DEFAULT_MIN_DERIVATIVE):
+    """The circular RQS of a periodic coordinate (Rezende et al. 2020; the
+    coupling layers of bijectors/transformer.py): bins as in
+    `unconstrained_rqs`, and K derivative logits, knot j's slope
+    min_derivative + softplus(d_j), with knot K sharing knot 0's, so that
+    the map's two ends meet with one learned slope. The caller wraps inputs
+    into the domain; the identity rule outside it stays, as the kernels
+    keep it."""
+    left, right, bottom, top = resolve_bounds(tail_bound, left, right,
+                                              bottom, top)
+    raw = torch.cat([unnormalized_derivatives,
+                     unnormalized_derivatives[..., :1]], dim=-1)
+    derivatives = min_derivative + softplus(raw)
+    return _rqs_in_domain(inputs, unnormalized_widths, unnormalized_heights,
+                          derivatives, inverse, left, right, bottom, top,
+                          min_bin_width, min_bin_height)
+
+
+def _rqs_in_domain(inputs, unnormalized_widths, unnormalized_heights,
+                   derivatives, inverse, left, right, bottom, top,
+                   min_bin_width, min_bin_height):
+    """The spline on [lo, hi] with the K+1 knot `derivatives`, identity
+    outside."""
+    lo, hi = (bottom, top) if inverse else (left, right)
+    inside = (inputs >= lo) & (inputs <= hi)
     # jnp.clip is minimum(maximum(.)): at x == lo or hi each side of the tie
     # takes half the gradient. torch.clamp passes all of it; these do not.
     safe_inputs = torch.minimum(
@@ -172,21 +203,24 @@ def unconstrained_rqs(inputs, unnormalized_widths, unnormalized_heights,
 
 
 def apply_rqs(inputs, w, h, d, *, inverse=False, tail_bound=None, left=None,
-              right=None, bottom=None, top=None):
-    """`unconstrained_rqs` as the flow layers call it: the CUDA kernels,
-    forward and backward, on CUDA tensors (float32; anything else raises),
-    the plain twin on CPU."""
+              right=None, bottom=None, top=None, circular=False):
+    """`unconstrained_rqs` (or with `circular`, `circular_rqs`) as the flow
+    layers call it: the CUDA kernels, forward and backward, on CUDA tensors
+    (float32; anything else raises), the plain twin on CPU."""
     left, right, bottom, top = resolve_bounds(tail_bound, left, right,
                                               bottom, top)
     if inputs.is_cuda:
-        from ..ops.rqs import unconstrained_rqs_fused
+        from ..ops import rqs as ops
 
-        return unconstrained_rqs_fused(inputs, w, h, d, inverse, left, right,
-                                       bottom, top)
+        kernels = ((ops.crqs_cuda, ops.crqs_vjp_cuda) if circular
+                   else (ops.rqs_cuda, ops.rqs_vjp_cuda))
+        return ops.unconstrained_rqs_fused(inputs, w, h, d, inverse, left,
+                                           right, bottom, top, *kernels)
     if inputs.device.type != "cpu":
         raise ValueError(f"apply_rqs: unsupported device {inputs.device}")
-    return unconstrained_rqs(inputs, w, h, d, inverse=inverse, left=left,
-                             right=right, bottom=bottom, top=top)
+    plain = circular_rqs if circular else unconstrained_rqs
+    return plain(inputs, w, h, d, inverse=inverse, left=left, right=right,
+                 bottom=bottom, top=top)
 
 
 def split_spline_params(raw, num_bins):

@@ -3,13 +3,17 @@ Twin of normalizingflow_tpu/config.py.
 
   * the schema dataclasses and their defaults are the JAX package's, so
     every file in configs/ parses to the same values; unknown keys raise,
-    and yacs-style "1e-4" strings become floats;
+    and yacs-style "1e-4" strings become floats; FlowConfig adds NSF_TCL's
+    fields (PORT_ONLY_FLOW_FIELDS), which no JAX config sets;
   * box-length inference: B = (N/(8 rho))^(1/3) from the density, or
     B = ncellx * cell_len / 2 from the cell grid; boxlength = 2B, and the
     spline tail bound is B;
   * the NSF_CL coordinate-mask cycle [[0],[1],[2],[0,1],[1,2],[0,2]], and
     the Repeat/Chain switch of RealNVP and NSF_AR, which fixes the params
     tree's structure, exactly as in JAX;
+  * NSF_TCL, the port's alone: transformer-conditioned circular-spline
+    couplings (bijectors/transformer.py), layer l moving axis l mod dim,
+    in the box of side boxlength;
   * the `device:` key: `cpu` runs on the CPU; `tpu`, `cuda`, `cuda:N` or no
     key mean the card (the configs name the accelerator they were written
     for). Nothing falls back to the CPU: without a card, `cuda` raises.
@@ -36,6 +40,7 @@ from .bijectors import (
     Repeat,
     SplineAR,
     SplineCoupling,
+    TransformerCoupling,
 )
 from .device import entry_device
 from .distributions import DiagNormal, EinsteinCrystal, GaussianMixture
@@ -96,6 +101,18 @@ class FlowConfig:
     periodic: bool = True
     s_cap: Optional[float] = None   # RealNVP log-scale soft clamp
     zero_init: bool = False         # RealNVP identity init
+    # NSF_TCL (the port's own; the JAX schema has no such flow): the
+    # transformer's width, heads, blocks and Fourier frequencies
+    # (PORT_ONLY_FLOW_FIELDS)
+    embed_dim: int = 256
+    num_heads: int = 2
+    num_blocks: int = 2
+    num_freqs: int = 8
+
+
+# FlowConfig's fields the JAX schema lacks: a config written for the JAX
+# package leaves them at their defaults
+PORT_ONLY_FLOW_FIELDS = ("embed_dim", "num_heads", "num_blocks", "num_freqs")
 
 
 @dataclass
@@ -171,6 +188,19 @@ def load_config(path):
     with open(path) as fh:
         raw = yaml.safe_load(fh) or {}
     return _merge_dataclass(Config(), raw)
+
+
+def jax_schema(cfg):
+    """`dataclasses.asdict(cfg)` as the JAX package's schema has it: the
+    port-only flow fields (PORT_ONLY_FLOW_FIELDS) left out. Raises where
+    one of them is not at its default, which no JAX config could state."""
+    d = dataclasses.asdict(cfg)
+    flow = dict(d["flow"])
+    for name in PORT_ONLY_FLOW_FIELDS:
+        if flow.pop(name) != getattr(FlowConfig, name):
+            raise ValueError(f"flow.{name} is set; the JAX schema has no "
+                             f"such field")
+    return dict(d, flow=flow)
 
 
 def config_device(cfg):
@@ -289,6 +319,14 @@ def build_flow_stack(cfg: Config, b: float, device=None, dtype=None,
                 size=cfg.dataset.nparticles, space_dim=cfg.dataset.dim,
                 num_bins=fc.nsplines, tail_bound=b, hidden_dim=fc.hidden_dim,
                 mask=_NSF_CL_MASK_CYCLE[i % len(_NSF_CL_MASK_CYCLE)], **kw)
+            for i in range(fc.nlayers)]
+    elif fc.type == "NSF_TCL":
+        layers = [
+            TransformerCoupling(
+                cfg.dataset.nparticles, 2.0 * b, axis=i % cfg.dataset.dim,
+                num_bins=fc.nsplines, embed_dim=fc.embed_dim,
+                num_heads=fc.num_heads, num_blocks=fc.num_blocks,
+                num_freqs=fc.num_freqs, space_dim=cfg.dataset.dim, **kw)
             for i in range(fc.nlayers)]
     elif fc.type == "MAF":
         layers = [MaskedAffineAR(n, hidden_dim=fc.hidden_dim, **kw)

@@ -66,6 +66,16 @@
 // knot and derivative-logit cotangents from the lane that mapped it, and
 // writes the row's gw and gh (16-byte stores) and gd (zero but for two
 // entries). No fast math: the NaN and inf rules depend on IEEE semantics.
+//
+// Circular mode (nf_crqs_f32, nf_crqs_vjp_f32; kernels rqs_circular_fwd and
+// rqs_circular_vjp): the spline of a periodic coordinate, as the coupling
+// layers of bijectors/transformer.py use it. d holds K derivative logits a
+// row, not K-1: knot j (0 <= j < K) has slope min_d + softplus(d[j]) and
+// knot K shares knot 0's, so both ends are learned and equal. Inputs are
+// wrapped into the domain by the caller; the tail rule stays but no row
+// meets it. The VJP writes all K entries of gd, the bin's two nonzero. It
+// is a compile-time specialisation (kCircular) of the same bodies: the
+// instantiations above compile as they did without it.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -425,23 +435,46 @@ __device__ __forceinline__ Scalar find_bin(const Args& a) {
   return me;
 }
 
-template <int G, bool kInverse>
-__global__ void __launch_bounds__(kThreads) rqs_fwd(Args a) {
+// The circular bin's two knot slopes: knot idx reads d[idx], knot idx + 1
+// reads d[idx + 1], which is d[0] at idx = K - 1.
+__device__ __forceinline__ int circular_right(int idx, int k) {
+  return idx + 1 == k ? 0 : idx + 1;
+}
+
+template <int G, bool kInverse, bool kCircular>
+__device__ __forceinline__ void fwd_body(const Args& a) {
   Scalar me = find_bin<G, kInverse>(a);
   if (!me.valid) return;
   const SplineConsts& c = a.c;
   const int k = a.k;
-  const float* drow = a.d + me.row * (k - 1);
-  me.bin.dl = me.idx == 0 ? c.edge_d
-                          : c.min_d + softplus(static_cast<double>(
-                                          drow[me.idx - 1]));
-  me.bin.dr = me.idx == k - 1 ? c.edge_d
-                              : c.min_d + softplus(static_cast<double>(
-                                              drow[me.idx]));
+  if (kCircular) {
+    const float* drow = a.d + me.row * k;
+    me.bin.dl = c.min_d + softplus(static_cast<double>(drow[me.idx]));
+    me.bin.dr = c.min_d + softplus(static_cast<double>(
+                              drow[circular_right(me.idx, k)]));
+  } else {
+    const float* drow = a.d + me.row * (k - 1);
+    me.bin.dl = me.idx == 0 ? c.edge_d
+                            : c.min_d + softplus(static_cast<double>(
+                                            drow[me.idx - 1]));
+    me.bin.dr = me.idx == k - 1 ? c.edge_d
+                                : c.min_d + softplus(static_cast<double>(
+                                                drow[me.idx]));
+  }
   double out, logdet;
   rq_map<kInverse>(me.bin, out, logdet);
   a.y[me.row] = me.inside ? static_cast<float>(out) : me.xv;
   a.ld[me.row] = me.inside ? static_cast<float>(logdet) : 0.f;
+}
+
+template <int G, bool kInverse>
+__global__ void __launch_bounds__(kThreads) rqs_fwd(Args a) {
+  fwd_body<G, kInverse, false>(a);
+}
+
+template <int G, bool kInverse>
+__global__ void __launch_bounds__(kThreads) rqs_circular_fwd(Args a) {
+  fwd_body<G, kInverse, true>(a);
 }
 
 // gw (or gh) for one row on the group, as ops/rqs.py::_knot_logit_vjp:
@@ -478,16 +511,25 @@ __device__ __forceinline__ void spread(const double (&p)[kBPL], int idx,
 // and writes the row's gw, gh and gd. Six blocks an SM (at most 85
 // registers) ran 10% faster at (262144, 32) than the compiler's own 84-86
 // registers, on an H100 80GB HBM3 at 700 W.
-template <int G, bool kInverse>
-__global__ void __launch_bounds__(kThreads, 6) rqs_vjp(Args a) {
+template <int G, bool kInverse, bool kCircular>
+__device__ __forceinline__ void vjp_body(const Args& a) {
   Scalar me = find_bin<G, kInverse>(a);
   const SplineConsts& c = a.c;
   const int k = a.k;
-  const float* drow = a.d + me.row * (k - 1);
-  const double raw_l = me.idx == 0 ? 0.0 : drow[me.idx - 1];
-  const double raw_r = me.idx == k - 1 ? 0.0 : drow[me.idx];
-  me.bin.dl = me.idx == 0 ? c.edge_d : c.min_d + softplus(raw_l);
-  me.bin.dr = me.idx == k - 1 ? c.edge_d : c.min_d + softplus(raw_r);
+  double raw_l, raw_r;
+  if (kCircular) {
+    const float* drow = a.d + me.row * k;
+    raw_l = drow[me.idx];
+    raw_r = drow[circular_right(me.idx, k)];
+    me.bin.dl = c.min_d + softplus(raw_l);
+    me.bin.dr = c.min_d + softplus(raw_r);
+  } else {
+    const float* drow = a.d + me.row * (k - 1);
+    raw_l = me.idx == 0 ? 0.0 : drow[me.idx - 1];
+    raw_r = me.idx == k - 1 ? 0.0 : drow[me.idx];
+    me.bin.dl = me.idx == 0 ? c.edge_d : c.min_d + softplus(raw_l);
+    me.bin.dr = me.idx == k - 1 ? c.edge_d : c.min_d + softplus(raw_r);
+  }
   const double gyv = a.gy[me.row];
   const Bin g = map_vjp<kInverse>(me.bin, me.inside ? gyv : 0.0,
                                   me.inside ? a.gld[me.row] : 0.0);
@@ -497,9 +539,10 @@ __global__ void __launch_bounds__(kThreads, 6) rqs_vjp(Args a) {
   const double gkh_b = c.span_h * (g.ch - g.hb);
   const double gkw_b1 = me.idx + 1 < k ? c.span_w * g.wb : 0.0;
   const double gkh_b1 = me.idx + 1 < k ? c.span_h * g.hb : 0.0;
-  const float gdl =
-      me.idx >= 1 ? static_cast<float>(g.dl / (1.0 + exp(-raw_l))) : 0.f;
-  const float gdr = me.idx <= k - 2
+  const float gdl = (kCircular || me.idx >= 1)
+                        ? static_cast<float>(g.dl / (1.0 + exp(-raw_l)))
+                        : 0.f;
+  const float gdr = (kCircular || me.idx <= k - 2)
                         ? static_cast<float>(g.dr / (1.0 + exp(-raw_r)))
                         : 0.f;
   if (me.valid) {
@@ -535,7 +578,17 @@ __global__ void __launch_bounds__(kThreads, 6) rqs_vjp(Args a) {
               a.vec, valid);
     const float row_gdl = __shfl_sync(kFull, gdl, r, G);
     const float row_gdr = __shfl_sync(kFull, gdr, r, G);
-    if (valid) {
+    if (valid && kCircular) {
+      float* gdrow = a.gd + row * k;
+      const int right = circular_right(idx, k);
+#pragma unroll
+      for (int j = 0; j < kBPL; ++j) {
+        const int m = sub * kBPL + j;
+        if (m < k) {
+          gdrow[m] = m == idx ? row_gdl : (m == right ? row_gdr : 0.f);
+        }
+      }
+    } else if (valid) {
       float* gdrow = a.gd + row * (k - 1);
 #pragma unroll
       for (int j = 0; j < kBPL; ++j) {
@@ -548,9 +601,35 @@ __global__ void __launch_bounds__(kThreads, 6) rqs_vjp(Args a) {
   }
 }
 
+template <int G, bool kInverse>
+__global__ void __launch_bounds__(kThreads, 6) rqs_vjp(Args a) {
+  vjp_body<G, kInverse, false>(a);
+}
+
+template <int G, bool kInverse>
+__global__ void __launch_bounds__(kThreads, 6) rqs_circular_vjp(Args a) {
+  vjp_body<G, kInverse, true>(a);
+}
+
 template <int G>
-void launch(bool vjp, bool inverse, dim3 grid, cudaStream_t s,
+void launch(bool vjp, bool inverse, bool circular, dim3 grid, cudaStream_t s,
             const Args& a) {
+  if (circular) {
+    if (vjp) {
+      if (inverse) {
+        rqs_circular_vjp<G, true><<<grid, kThreads, 0, s>>>(a);
+      } else {
+        rqs_circular_vjp<G, false><<<grid, kThreads, 0, s>>>(a);
+      }
+    } else {
+      if (inverse) {
+        rqs_circular_fwd<G, true><<<grid, kThreads, 0, s>>>(a);
+      } else {
+        rqs_circular_fwd<G, false><<<grid, kThreads, 0, s>>>(a);
+      }
+    }
+    return;
+  }
   if (vjp) {
     if (inverse) {
       rqs_vjp<G, true><<<grid, kThreads, 0, s>>>(a);
@@ -570,9 +649,9 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-int run(bool vjp, Args a, int inverse, double left, double right,
-        double bottom, double top, double min_bw, double min_bh,
-        double min_d, void* stream) {
+int run(bool vjp, bool circular, Args a, int inverse, double left,
+        double right, double bottom, double top, double min_bw,
+        double min_bh, double min_d, void* stream) {
   const int k = a.k;
   if (k < 2 || k > 128 || a.n < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -604,11 +683,11 @@ int run(bool vjp, Args a, int inverse, double left, double right,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool inv = inverse != 0;
   switch (groups) {
-    case 2: launch<2>(vjp, inv, grid, s, a); break;
-    case 4: launch<4>(vjp, inv, grid, s, a); break;
-    case 8: launch<8>(vjp, inv, grid, s, a); break;
-    case 16: launch<16>(vjp, inv, grid, s, a); break;
-    default: launch<32>(vjp, inv, grid, s, a); break;
+    case 2: launch<2>(vjp, inv, circular, grid, s, a); break;
+    case 4: launch<4>(vjp, inv, circular, grid, s, a); break;
+    case 8: launch<8>(vjp, inv, circular, grid, s, a); break;
+    case 16: launch<16>(vjp, inv, circular, grid, s, a); break;
+    default: launch<32>(vjp, inv, circular, grid, s, a); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -635,8 +714,8 @@ extern "C" int nf_rqs_f32(const float* x, const float* w, const float* h,
   a.ld = ld;
   a.n = n;
   a.k = k;
-  return run(false, a, inverse, left, right, bottom, top, min_bw, min_bh,
-             min_d, stream);
+  return run(false, false, a, inverse, left, right, bottom, top, min_bw,
+             min_bh, min_d, stream);
 }
 
 extern "C" int nf_rqs_vjp_f32(const float* x, const float* w,
@@ -659,6 +738,49 @@ extern "C" int nf_rqs_vjp_f32(const float* x, const float* w,
   a.gd = gd;
   a.n = n;
   a.k = k;
-  return run(true, a, inverse, left, right, bottom, top, min_bw, min_bh,
-             min_d, stream);
+  return run(true, false, a, inverse, left, right, bottom, top, min_bw,
+             min_bh, min_d, stream);
+}
+
+// The circular mode: the same arguments, with d and gd (n, k).
+extern "C" int nf_crqs_f32(const float* x, const float* w, const float* h,
+                           const float* d, float* y, float* ld, int64_t n,
+                           int k, int inverse, double left, double right,
+                           double bottom, double top, double min_bw,
+                           double min_bh, double min_d, void* stream) {
+  Args a = {};
+  a.x = x;
+  a.w = w;
+  a.h = h;
+  a.d = d;
+  a.y = y;
+  a.ld = ld;
+  a.n = n;
+  a.k = k;
+  return run(false, true, a, inverse, left, right, bottom, top, min_bw,
+             min_bh, min_d, stream);
+}
+
+extern "C" int nf_crqs_vjp_f32(const float* x, const float* w,
+                               const float* h, const float* d,
+                               const float* gy, const float* gld, float* gx,
+                               float* gw, float* gh, float* gd, int64_t n,
+                               int k, int inverse, double left, double right,
+                               double bottom, double top, double min_bw,
+                               double min_bh, double min_d, void* stream) {
+  Args a = {};
+  a.x = x;
+  a.w = w;
+  a.h = h;
+  a.d = d;
+  a.gy = gy;
+  a.gld = gld;
+  a.y = gx;
+  a.gw = gw;
+  a.gh = gh;
+  a.gd = gd;
+  a.n = n;
+  a.k = k;
+  return run(true, true, a, inverse, left, right, bottom, top, min_bw,
+             min_bh, min_d, stream);
 }

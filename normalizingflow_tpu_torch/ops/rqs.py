@@ -12,6 +12,12 @@ autodiff of its jnp path; this is that VJP in closed form).
 `twin_vjp`, autograd through the twin, is the backward the kernel replaced,
 kept for the checks.
 
+The circular mode (`bijectors/rqs.py::circular_rqs`: K derivative
+logits, both ends' slope learned and shared) has the same four: the
+kernels `crqs_cuda` and `crqs_vjp_cuda` (csrc/rqs.cu's `nf_crqs_f32` and
+`nf_crqs_vjp_f32`), the plain `plain_crqs` and `crqs_vjp_plain`, and
+`twin_crqs_vjp`.
+
 `unconstrained_rqs_fused` wraps a forward and a backward implementation in
 an autograd Function. The flow layers (bijectors/rqs.py::apply_rqs) pass
 the two kernels, so on the card no plain version runs in a gradient; the
@@ -33,6 +39,7 @@ from ..bijectors.rqs import (
     _gather,
     _normalize_bins,
     _search_bins,
+    circular_rqs,
     softplus,
     unconstrained_rqs,
 )
@@ -43,14 +50,12 @@ MAX_BINS = 128
 
 # ctypes argument types of csrc/rqs.cu's entry points: pointers, n, (k,
 # inverse), the bounds and floors, the stream
-SIGNATURES = {
-    "nf_rqs_f32": ([ctypes.c_void_p] * 6 + [ctypes.c_int64]
-                   + [ctypes.c_int] * 2 + [ctypes.c_double] * 7
-                   + [ctypes.c_void_p]),
-    "nf_rqs_vjp_f32": ([ctypes.c_void_p] * 10 + [ctypes.c_int64]
-                       + [ctypes.c_int] * 2 + [ctypes.c_double] * 7
-                       + [ctypes.c_void_p]),
-}
+_FWD_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 2
+             + [ctypes.c_double] * 7 + [ctypes.c_void_p])
+_VJP_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int64] + [ctypes.c_int] * 2
+             + [ctypes.c_double] * 7 + [ctypes.c_void_p])
+SIGNATURES = {"nf_rqs_f32": _FWD_ARGS, "nf_rqs_vjp_f32": _VJP_ARGS,
+              "nf_crqs_f32": _FWD_ARGS, "nf_crqs_vjp_f32": _VJP_ARGS}
 
 
 def bind(lib):
@@ -71,7 +76,7 @@ def _library():
     return lib
 
 
-def _check(x, w, h, d, **per_scalar):
+def _check(x, w, h, d, circular=False, **per_scalar):
     """Validate the kernels' inputs; `per_scalar` are further tensors
     shaped like x (the cotangents). Returns K."""
     k = w.shape[-1] if w.dim() else 0
@@ -80,7 +85,7 @@ def _check(x, w, h, d, **per_scalar):
                          f"got K = {k}")
     xs = tuple(x.shape)
     shapes = dict(x=(x, xs), w=(w, xs + (k,)), h=(h, xs + (k,)),
-                  d=(d, xs + (k - 1,)))
+                  d=(d, xs + (k if circular else k - 1,)))
     shapes.update((name, (t, xs)) for name, t in per_scalar.items())
     for name, (t, want) in shapes.items():
         if not t.is_cuda or t.device != x.device:
@@ -101,12 +106,11 @@ def _consts(inverse, left, right, bottom, top):
             DEFAULT_MIN_DERIVATIVE)
 
 
-def rqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
-    """unconstrained_rqs(x, w, h, d) by the CUDA kernel on the current
-    stream: x (...), w and h (..., K), d (..., K-1), float32 on one CUDA
-    device. Returns (y, logabsdet) shaped like x. Raises on inputs the
-    kernel does not take and on a failed launch; never falls back."""
-    k = _check(x, w, h, d)
+def _forward(entry, circular, x, w, h, d, inverse, left, right, bottom,
+             top):
+    """y, logabsdet by the forward kernel `entry` of the library."""
+    k = _check(x, w, h, d, circular)
+    dk = k if circular else k - 1
     xf = x.reshape(-1).contiguous()
     n = xf.numel()
     y = torch.empty_like(xf)
@@ -115,16 +119,59 @@ def rqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
         return y.reshape(x.shape), ld.reshape(x.shape)
     wf = w.reshape(n, k).contiguous()
     hf = h.reshape(n, k).contiguous()
-    df = d.reshape(n, k - 1).contiguous()
+    df = d.reshape(n, dk).contiguous()
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.nf_rqs_f32(xf.data_ptr(), wf.data_ptr(), hf.data_ptr(),
-                         df.data_ptr(), y.data_ptr(), ld.data_ptr(), n, k,
-                         *_consts(inverse, left, right, bottom, top), stream)
+    err = getattr(lib, entry)(
+        xf.data_ptr(), wf.data_ptr(), hf.data_ptr(), df.data_ptr(),
+        y.data_ptr(), ld.data_ptr(), n, k,
+        *_consts(inverse, left, right, bottom, top), stream)
     if err != 0:
         raise RuntimeError(f"rqs kernel launch failed: CUDA error {err}")
-    rqs_cuda.launches += 1
     return y.reshape(x.shape), ld.reshape(x.shape)
+
+
+def _vjp(entry, circular, x, w, h, d, grad_y, grad_ld, inverse, left,
+         right, bottom, top):
+    """(gx, gw, gh, gd) by the backward kernel `entry` of the library."""
+    k = _check(x, w, h, d, circular, grad_y=grad_y, grad_ld=grad_ld)
+    dk = k if circular else k - 1
+    xf = x.reshape(-1).contiguous()
+    n = xf.numel()
+    gx = torch.empty_like(xf)
+    gw = torch.empty(n, k, dtype=x.dtype, device=x.device)
+    gh = torch.empty_like(gw)
+    gd = torch.empty(n, dk, dtype=x.dtype, device=x.device)
+    shapes = (x.shape, w.shape, h.shape, d.shape)
+    if n == 0:
+        return tuple(g.reshape(s) for g, s in zip((gx, gw, gh, gd), shapes))
+    wf = w.reshape(n, k).contiguous()
+    hf = h.reshape(n, k).contiguous()
+    df = d.reshape(n, dk).contiguous()
+    gyf = grad_y.reshape(-1).contiguous()
+    gldf = grad_ld.reshape(-1).contiguous()
+    lib = _library()
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = getattr(lib, entry)(
+        xf.data_ptr(), wf.data_ptr(), hf.data_ptr(), df.data_ptr(),
+        gyf.data_ptr(), gldf.data_ptr(), gx.data_ptr(), gw.data_ptr(),
+        gh.data_ptr(), gd.data_ptr(), n, k,
+        *_consts(inverse, left, right, bottom, top), stream)
+    if err != 0:
+        raise RuntimeError(f"rqs vjp kernel launch failed: CUDA error {err}")
+    return tuple(g.reshape(s) for g, s in zip((gx, gw, gh, gd), shapes))
+
+
+def rqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
+    """unconstrained_rqs(x, w, h, d) by the CUDA kernel on the current
+    stream: x (...), w and h (..., K), d (..., K-1), float32 on one CUDA
+    device. Returns (y, logabsdet) shaped like x. Raises on inputs the
+    kernel does not take and on a failed launch; never falls back."""
+    out = _forward("nf_rqs_f32", False, x, w, h, d, inverse, left, right,
+                   bottom, top)
+    if x.numel():
+        rqs_cuda.launches += 1
+    return out
 
 
 rqs_cuda.launches = 0
@@ -136,35 +183,41 @@ def rqs_vjp_cuda(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
     current stream: cotangents grad_y and grad_ld shaped like x, float32 on
     x's device. Returns (gx, gw, gh, gd) shaped like (x, w, h, d). Raises
     on inputs the kernel does not take and on a failed launch."""
-    k = _check(x, w, h, d, grad_y=grad_y, grad_ld=grad_ld)
-    xf = x.reshape(-1).contiguous()
-    n = xf.numel()
-    gx = torch.empty_like(xf)
-    gw = torch.empty(n, k, dtype=x.dtype, device=x.device)
-    gh = torch.empty_like(gw)
-    gd = torch.empty(n, k - 1, dtype=x.dtype, device=x.device)
-    shapes = (x.shape, w.shape, h.shape, d.shape)
-    if n == 0:
-        return tuple(g.reshape(s) for g, s in zip((gx, gw, gh, gd), shapes))
-    wf = w.reshape(n, k).contiguous()
-    hf = h.reshape(n, k).contiguous()
-    df = d.reshape(n, k - 1).contiguous()
-    gyf = grad_y.reshape(-1).contiguous()
-    gldf = grad_ld.reshape(-1).contiguous()
-    lib = _library()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.nf_rqs_vjp_f32(
-        xf.data_ptr(), wf.data_ptr(), hf.data_ptr(), df.data_ptr(),
-        gyf.data_ptr(), gldf.data_ptr(), gx.data_ptr(), gw.data_ptr(),
-        gh.data_ptr(), gd.data_ptr(), n, k,
-        *_consts(inverse, left, right, bottom, top), stream)
-    if err != 0:
-        raise RuntimeError(f"rqs vjp kernel launch failed: CUDA error {err}")
-    rqs_vjp_cuda.launches += 1
-    return tuple(g.reshape(s) for g, s in zip((gx, gw, gh, gd), shapes))
+    out = _vjp("nf_rqs_vjp_f32", False, x, w, h, d, grad_y, grad_ld,
+               inverse, left, right, bottom, top)
+    if x.numel():
+        rqs_vjp_cuda.launches += 1
+    return out
 
 
 rqs_vjp_cuda.launches = 0
+
+
+def crqs_cuda(x, w, h, d, inverse, left, right, bottom, top):
+    """circular_rqs(x, w, h, d) by the circular forward kernel: as
+    `rqs_cuda`, with d (..., K)."""
+    out = _forward("nf_crqs_f32", True, x, w, h, d, inverse, left, right,
+                   bottom, top)
+    if x.numel():
+        crqs_cuda.launches += 1
+    return out
+
+
+crqs_cuda.launches = 0
+
+
+def crqs_vjp_cuda(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
+                  top):
+    """The VJP of circular_rqs by the circular backward kernel: as
+    `rqs_vjp_cuda`, with d and gd (..., K)."""
+    out = _vjp("nf_crqs_vjp_f32", True, x, w, h, d, grad_y, grad_ld,
+               inverse, left, right, bottom, top)
+    if x.numel():
+        crqs_vjp_cuda.launches += 1
+    return out
+
+
+crqs_vjp_cuda.launches = 0
 
 
 def plain_rqs(x, w, h, d, inverse, left, right, bottom, top):
@@ -173,15 +226,28 @@ def plain_rqs(x, w, h, d, inverse, left, right, bottom, top):
                              right=right, bottom=bottom, top=top)
 
 
+def plain_crqs(x, w, h, d, inverse, left, right, bottom, top):
+    """The circular twin with `crqs_cuda`'s signature."""
+    return circular_rqs(x, w, h, d, inverse=inverse, left=left, right=right,
+                        bottom=bottom, top=top)
+
+
 def twin_vjp(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
-             top):
-    """The VJP by autograd through the twin, recomputed, with
+             top, plain=plain_rqs):
+    """The VJP by autograd through the twin (`plain`), recomputed, with
     `rqs_vjp_plain`'s signature: the backward the kernel replaced. The
     checks compare with it; no flow layer calls it."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (x, w, h, d)]
-        y, ld = plain_rqs(*ins, inverse, left, right, bottom, top)
+        y, ld = plain(*ins, inverse, left, right, bottom, top)
         return torch.autograd.grad((y, ld), ins, (grad_y, grad_ld))
+
+
+def twin_crqs_vjp(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
+                  top):
+    """`twin_vjp` of the circular twin."""
+    return twin_vjp(x, w, h, d, grad_y, grad_ld, inverse, left, right,
+                    bottom, top, plain=plain_crqs)
 
 
 def _map_vjp(xs, cw, wb, ch, hb, dl, dr, gy, gld, inverse):
@@ -287,9 +353,10 @@ def _knot_logit_vjp(logits, idx, g_left, g_size, span, scale):
 
 
 def rqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
-                  top):
+                  top, circular=False):
     """The VJP of unconstrained_rqs in closed form, in plain tensor ops (no
     autograd): returns (gx, gw, gh, gd) for cotangents grad_y, grad_ld.
+    With `circular`, that of circular_rqs (d and gd (..., K)).
 
     The backward kernel's plain version, equal to `jax.vjp` of the JAX
     function: x gets grad_y outside the domain and, inside, the map's
@@ -307,9 +374,12 @@ def rqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
     knots_h, sizes_h = _normalize_bins(h, k, DEFAULT_MIN_BIN_HEIGHT, bottom,
                                        top)
     idx = _search_bins(knots_h if inverse else knots_w, xs)
-    edge = torch.full_like(d[..., :1], math.log(math.expm1(
-        1.0 - DEFAULT_MIN_DERIVATIVE)))
-    raw = torch.cat([edge, d, edge], dim=-1)
+    if circular:
+        raw = torch.cat([d, d[..., :1]], dim=-1)
+    else:
+        edge = torch.full_like(d[..., :1], math.log(math.expm1(
+            1.0 - DEFAULT_MIN_DERIVATIVE)))
+        raw = torch.cat([edge, d, edge], dim=-1)
     deriv = DEFAULT_MIN_DERIVATIVE + softplus(raw)
     zero = torch.zeros_like(x)
     gy = torch.where(inside, grad_y, zero)
@@ -323,21 +393,36 @@ def rqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right, bottom,
                          1.0 - DEFAULT_MIN_BIN_WIDTH * k)
     gh = _knot_logit_vjp(h, idx, g_ch, g_hb, top - bottom,
                          1.0 - DEFAULT_MIN_BIN_HEIGHT * k)
-    # softplus' = 1 / (1 + exp(-raw)); d[j] is the raw derivative of knot
-    # j + 1, so the bin's left knot idx reads d[idx - 1], its right d[idx]
+    # softplus' = 1 / (1 + exp(-raw)) on the bin's two knots' logits: knot
+    # j's raw value is raw[j]; in d it is d[j - 1] (inner knots only), or
+    # circular d[j mod K]
     den = 1.0 + torch.exp(-raw)
-    g_dl = torch.where(idx >= 1, g_dl / _gather(den, idx), zero)
-    g_dr = torch.where(idx <= k - 2, g_dr / _gather(den[..., 1:], idx), zero)
-    m = torch.arange(k - 1, device=x.device)
-    gd = (torch.where(m == (idx - 1)[..., None], g_dl[..., None],
+    g_dl = g_dl / _gather(den, idx)
+    g_dr = g_dr / _gather(den[..., 1:], idx)
+    m = torch.arange(d.shape[-1], device=x.device)
+    if circular:
+        left_at, right_at = idx, torch.where(idx + 1 == k, 0, idx + 1)
+    else:
+        g_dl = torch.where(idx >= 1, g_dl, zero)
+        g_dr = torch.where(idx <= k - 2, g_dr, zero)
+        left_at, right_at = idx - 1, idx
+    gd = (torch.where(m == left_at[..., None], g_dl[..., None],
                       torch.zeros_like(d))
-          + torch.where(m == idx[..., None], g_dr[..., None],
+          + torch.where(m == right_at[..., None], g_dr[..., None],
                         torch.zeros_like(d)))
     at_bound = (x == lo) | (x == hi)
     factor = torch.where(at_bound, 0.5, 1.0).to(x.dtype)
     gx = torch.where(inside, zero, grad_y) + torch.where(
         inside, factor, zero) * g_xs
     return gx, gw, gh, gd
+
+
+def crqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right,
+                   bottom, top):
+    """`rqs_vjp_plain` of the circular spline, with `crqs_vjp_cuda`'s
+    signature."""
+    return rqs_vjp_plain(x, w, h, d, grad_y, grad_ld, inverse, left, right,
+                         bottom, top, circular=True)
 
 
 def _stack_rows(info, in_dims, tensors):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import annotate
 from .dataset import TrajectoryTarget
 
 
@@ -64,9 +65,12 @@ class LennardJones(TrajectoryTarget):
         self._attach(pos_dir, data_type, device, dtype)
 
     def potential(self, x):
-        pos = x.reshape(-1, self.n_particles, self.point_dim)
-        return lj_pair_energy_total(pos, self.boxlength, self.epsilon,
-                                    self.sigma, self.cutoff, self.shift)
+        """The energy of each configuration, inside the span `lj.energy`
+        (utils.profiling.annotate: free while no profiler runs)."""
+        with annotate("lj.energy"):
+            pos = x.reshape(-1, self.n_particles, self.point_dim)
+            return lj_pair_energy_total(pos, self.boxlength, self.epsilon,
+                                        self.sigma, self.cutoff, self.shift)
 
     def log_prob(self, x):
         return -self.potential(x) / self.kT

@@ -42,7 +42,7 @@ def repo_root(monkeypatch):
 
 @pytest.mark.parametrize("path", ALL_CONFIGS, ids=os.path.basename)
 def test_config_parses_to_the_jax_values(path):
-    assert dataclasses.asdict(tconfig.load_config(path)) == \
+    assert tconfig.jax_schema(tconfig.load_config(path)) == \
         dataclasses.asdict(jconfig.load_config(path))
 
 
@@ -70,7 +70,7 @@ def test_config_builds_or_names_what_is_missing(path):
         return  # needs the trajectory file; the model part is checked above
     _, potential, cfg2 = tconfig.setup_model(cfg, device="meta")
     _, jpotential, jcfg2 = jconfig.setup_model(jcfg)
-    assert dataclasses.asdict(cfg2) == dataclasses.asdict(jcfg2)
+    assert tconfig.jax_schema(cfg2) == dataclasses.asdict(jcfg2)
     assert type(potential).__name__ == type(jpotential).__name__
     assert potential.dim == jpotential.dim == prior.dim
     assert getattr(potential, "boxlength", None) == \

@@ -8,10 +8,15 @@ import torch
 from torch.autograd import profiler as autograd_profiler
 
 from normalizingflow_tpu_torch import NormalizingFlow
-from normalizingflow_tpu_torch.bijectors import AffineCoupling, Chain, SplineAR
+from normalizingflow_tpu_torch.bijectors import (
+    AffineCoupling,
+    Chain,
+    SplineAR,
+    TransformerCoupling,
+)
 from normalizingflow_tpu_torch.distributions import DiagNormal
 from normalizingflow_tpu_torch.mcmc import padded_length, run_hmc
-from normalizingflow_tpu_torch.targets import NealsFunnel
+from normalizingflow_tpu_torch.targets import LennardJones, NealsFunnel
 from normalizingflow_tpu_torch.train.fused import train_flow_fused
 from normalizingflow_tpu_torch.train.loop import bench_optimizer, train_step
 from normalizingflow_tpu_torch.utils import annotate, profiling, trace
@@ -23,6 +28,8 @@ HMC_SPANS = ("hmc.grad",)
 TRAIN_SPANS = ("train.loss", "train.backward")
 SPLINE_SPANS = ("spline_ar.restack", "spline_ar.conditioner",
                 "spline_ar.spline")
+TCL_SPANS = ("tcl.attention", "tcl.sdpa", "tcl.mlp", "tcl.spline")
+LJ_BOX = 3.0
 
 
 def profiled(fn):
@@ -204,6 +211,95 @@ def test_spline_ar_stacked_inverse_records_its_three_parts_each_dim_step(
     _assert_three_parts_each_dim_step(True, monkeypatch)
 
 
+def tcl_flow(layers=3, blocks=2):
+    gen = torch.Generator().manual_seed(9)
+    return NormalizingFlow(DiagNormal(24, dtype=DT), Chain(
+        [TransformerCoupling(8, LJ_BOX, i % 3, num_bins=4, embed_dim=8,
+                             num_heads=2, num_blocks=blocks, num_freqs=2,
+                             generator=gen, dtype=DT)
+         for i in range(layers)]))
+
+
+def lj_target():
+    return LennardJones(8, LJ_BOX, cutoff=1.4, kT=2.0, dtype=DT)
+
+
+def tcl_rkl_steps(steps=2, layers=3):
+    """Reverse-KL steps of an NSF_TCL flow against an LJ target."""
+    flow = tcl_flow(layers)
+    opt = bench_optimizer(list(flow.parameters()), steps, warmup_steps=1)
+    gen = torch.Generator().manual_seed(10)
+    losses = [train_step(flow, lj_target(), opt,
+                         (torch.rand(4, 24, generator=gen, dtype=DT) - 0.5)
+                         * LJ_BOX) for _ in range(steps)]
+    return losses + [p.detach() for p in flow.parameters()]
+
+
+def lj_hmc(num_samples=3, thin=2):
+    """HMC on an LJ target from a jittered lattice, as sample_data runs
+    it."""
+    gen = torch.Generator().manual_seed(12)
+    grid = torch.stack(torch.meshgrid(*[torch.arange(2, dtype=DT)] * 3,
+                                      indexing="ij"), -1).reshape(8, 3)
+    x0 = (grid * LJ_BOX / 2 - LJ_BOX / 4).reshape(1, 24) + 0.02 * torch.randn(
+        5, 24, generator=gen, dtype=DT)
+    res = run_hmc(gen, lj_target().log_prob, x0, num_samples, num_warmup=0,
+                  step_size=0.005, num_leapfrog=3, thin=thin, device="cpu")
+    return res.samples, res.log_probs
+
+
+@pytest.mark.parametrize("layers,blocks", [(3, 2), (2, 1)])
+def test_tcl_forward_pass_records_its_spans_a_layer_and_block(layers,
+                                                              blocks):
+    flow = tcl_flow(layers, blocks)
+    z = (torch.rand(4, 24, dtype=DT,
+                    generator=torch.Generator().manual_seed(11)) - 0.5) * 3
+    _, prof = profiled(lambda: flow.inverse(z))
+    found = ranges(prof, TCL_SPANS)
+    # attention (and its SDPA call) once a block; the MLP ranges: the wrap
+    # and embedding, then each block's MLP, the last with the output
+    # projection; the spline once a layer
+    assert len(found["tcl.attention"]) == layers * blocks
+    assert len(found["tcl.sdpa"]) == layers * blocks
+    assert len(found["tcl.mlp"]) == layers * (blocks + 1)
+    assert len(found["tcl.spline"]) == layers
+    assert_disjoint(sorted(found["tcl.attention"] + found["tcl.mlp"]
+                           + found["tcl.spline"]))
+    for name in TCL_SPANS:
+        assert_disjoint(found[name])
+    for s0, s1 in found["tcl.sdpa"]:
+        assert any(a0 <= s0 <= s1 <= a1 for a0, a1 in found["tcl.attention"])
+
+
+def test_lj_energy_records_one_range_a_rkl_step():
+    _, prof = profiled(lambda: tcl_rkl_steps(3, layers=2))
+    spans = ranges(prof, ("lj.energy",))["lj.energy"]
+    assert len(spans) == 3
+    assert_disjoint(spans)
+
+
+def test_lj_energy_records_one_range_a_gradient_evaluation():
+    samples, thin, leapfrog = 3, 2, 3
+    _, prof = profiled(lambda: lj_hmc(samples, thin))
+    spans = ranges(prof, ("lj.energy",))["lj.energy"]
+    # L a transition, and one for the initial state of the run
+    assert len(spans) == leapfrog * samples * thin + 1
+    assert_disjoint(spans)
+
+
+def test_tcl_and_lj_spans_are_no_ops_without_a_profiler(monkeypatch):
+    entered = []
+
+    def counting(name):
+        entered.append(name)
+        return profiling._NO_SPAN
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    tcl_rkl_steps(2, layers=1)
+    lj_hmc(1, 1)
+    assert entered == []
+
+
 @pytest.mark.parametrize("path", [
     lambda: gaussian_hmc(True, 20, 4),
     lambda: gaussian_hmc(False, 20, 4),
@@ -211,8 +307,11 @@ def test_spline_ar_stacked_inverse_records_its_three_parts_each_dim_step(
     fkl_steps,
     spline_inverse,
     lambda: spline_inverse(recorded=True),
+    tcl_rkl_steps,
+    lj_hmc,
 ], ids=["run_hmc", "run_hmc_per_point", "train_step", "train_flow_fused",
-        "spline_ar_inverse", "spline_ar_inverse_stacked"])
+        "spline_ar_inverse", "spline_ar_inverse_stacked", "tcl_train_step",
+        "lj_run_hmc"])
 def test_outputs_are_the_same_bits_with_and_without_a_profiler(path):
     plain = path()
     traced, _ = profiled(path)
